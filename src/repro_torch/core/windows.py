@@ -1,0 +1,166 @@
+"""Sort-and-window machinery (``repro.core.windows``), SortingLSH mode.
+
+Points sort lexicographically by their M SimHash bits with a random
+tiebreak, then a random shift r ~ [W/2, W] offsets the window boundaries
+(the Stars 2 listing).  Windows are fixed (n_windows, W) slot grids with a
+validity mask, exactly as in the JAX package.
+
+Two traps of the JAX program have no direct torch counterpart:
+
+  * ``lax.sort`` over M + 2 operands: SimHash words are single bits, so
+    the M bits (most significant first) and the 20-bit tiebreak pack into
+    one int64 key, and a stable sort over ascending gids resolves the
+    remaining ties by gid, as the JAX sort's last operand does.
+  * ``lax.top_k`` keeps the lower index on a tie and ``torch.topk`` does
+    not; a stable descending sort does.
+
+LSH mode (``lsh_windows``) comes with LSH-Stars in a later slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch import prng
+
+INVALID = -1
+
+# Bucket id of padding slots: uint32 0xFFFFFFFF held as its int32 bit
+# pattern (buckets are only ever compared for equality).
+PAD_BUCKET = -1
+
+
+@dataclasses.dataclass(frozen=True)
+class Windows:
+    """Fixed-shape windowed view of one repetition's sorted order.
+
+    Attributes:
+      gid:    (n_windows, W) int32 point ids; -1 on padding slots.
+      valid:  (n_windows, W) bool.
+      bucket: (n_windows, W) int32 bucket id bit patterns: 0 in sorting
+              mode (the window is the bucket), ``PAD_BUCKET`` on padding.
+    """
+
+    gid: torch.Tensor
+    valid: torch.Tensor
+    bucket: torch.Tensor
+
+
+def _scatter_to_slots(perm_gid: torch.Tensor, perm_bucket: torch.Tensor,
+                      offset: int, n_slots: int, w: int) -> Windows:
+    """Place the sorted sequence into padded slots starting at ``offset``."""
+    n = perm_gid.shape[0]
+    dev = perm_gid.device
+    slots_gid = torch.full((n_slots,), INVALID, dtype=torch.int32, device=dev)
+    slots_bucket = torch.full((n_slots,), PAD_BUCKET, dtype=torch.int32,
+                              device=dev)
+    slots_gid[offset:offset + n] = perm_gid
+    slots_bucket[offset:offset + n] = perm_bucket
+    gid = slots_gid.reshape(-1, w)
+    return Windows(gid=gid, valid=gid >= 0, bucket=slots_bucket.reshape(-1, w))
+
+
+def window_slot_count(mode: str, n: int, window: int) -> int:
+    """Static padded slot count of one repetition's window grid."""
+    if mode == "lsh":
+        return ((n + window - 1) // window) * window
+    if mode != "sorting":
+        raise ValueError(f"unknown mode {mode!r}")
+    return ((n + window - 1) // window + 1) * window
+
+
+def window_layout(mode: str, n: int, window: int,
+                  shift_key: Optional[prng.Key] = None) -> Tuple[int, int]:
+    """(slot offset, padded slot count) of one repetition's window grid.
+
+    SortingLSH mode draws the first-block size r ~ [W/2, W] from
+    ``shift_key`` (offset W - r) and pads one extra window of slots.
+    """
+    if mode == "lsh":
+        return 0, window_slot_count(mode, n, window)
+    if mode != "sorting":
+        raise ValueError(f"unknown mode {mode!r}")
+    r = int(prng.randint(shift_key, (), window // 2, window + 1))
+    return window - r, window_slot_count(mode, n, window)
+
+
+def sort_key(bits: torch.Tensor, tiebreak: torch.Tensor,
+             tiebreak_bits: int) -> torch.Tensor:
+    """One int64 key per point: the M sketch bits, most significant first,
+    above the top ``tiebreak_bits`` of the uint32 tiebreak."""
+    n, m = bits.shape
+    if m + tiebreak_bits > 63:
+        raise NotImplementedError(
+            f"M={m} sketch bits + {tiebreak_bits} tiebreak bits do not "
+            "pack into one int64 sort key (needs M <= "
+            f"{63 - tiebreak_bits})")
+    weights = torch.arange(m - 1, -1, -1, dtype=torch.int64,
+                           device=bits.device) + tiebreak_bits
+    packed = (bits.to(torch.int64) << weights).sum(-1)
+    return packed | (tiebreak >> (32 - tiebreak_bits))
+
+
+def sorting_lsh_windows(bits: torch.Tensor, *, window: int,
+                        shift_key: prng.Key, tiebreak: torch.Tensor,
+                        tiebreak_bits: int) -> Windows:
+    """Stars 2 windowing: exact lexicographic sort + random-shift blocks.
+
+    Args:
+      bits:      (n, M) bool SimHash bits per point.
+      window:    W.
+      shift_key: PRNG key of the random shift r ~ [W/2, W].
+      tiebreak:  (n,) int64 uint32 tiebreak values; only the top
+                 ``tiebreak_bits`` may be set (``stars._rep_window_grid``).
+    """
+    n = bits.shape[0]
+    key = sort_key(bits, tiebreak, tiebreak_bits)
+    # stable over gids 0..n-1: equal keys keep gid order, the JAX sort's
+    # final resolver
+    perm_gid = torch.sort(key, stable=True).indices.to(torch.int32)
+    offset, n_slots = window_layout("sorting", n, window, shift_key)
+    return _scatter_to_slots(perm_gid, torch.zeros_like(perm_gid), offset,
+                             n_slots, window)
+
+
+def global_row_draw(draw, nw: int, row_offset: int,
+                    total_rows: Optional[int], fill: float,
+                    stride: int = 1) -> torch.Tensor:
+    """Rows ``row_offset + stride * [0, nw)`` of a globally shaped draw.
+
+    ``draw(rows)`` is a pure function of its row count.  On one device
+    (``total_rows`` None) the slice is the whole grid; the sharded form
+    reads ``fill`` past ``total_rows``, as in the JAX package.
+    """
+    if total_rows is None:
+        return draw(nw)
+    full = draw(total_rows)
+    idx = row_offset + stride * torch.arange(nw, device=full.device)
+    take = full[idx.clamp_max(total_rows - 1)]
+    oob = (idx >= total_rows).reshape((nw,) + (1,) * (full.dim() - 1))
+    return torch.where(oob, torch.full_like(take, fill), take)
+
+
+def sample_leaders(windows: Windows, *, s: int, key: prng.Key,
+                   row_offset: int = 0, total_rows: Optional[int] = None,
+                   stride: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sample up to ``s`` uniformly random leaders per window.
+
+    Returns:
+      leader_slot: (n_windows, s) int32 slot index within the window.
+      leader_ok:   (n_windows, s) bool, False where a window had fewer
+                   than s valid points.
+    """
+    nw, w = windows.gid.shape
+    dev = windows.gid.device
+    pri = global_row_draw(
+        lambda rows: prng.uniform(key, (rows, w), device=dev), nw,
+        row_offset, total_rows, fill=-1.0, stride=stride)
+    pri = torch.where(windows.valid, pri, torch.full_like(pri, -1.0))
+    # lax.top_k order: value descending, lower index first on a tie
+    vals, slots = torch.sort(pri, dim=1, descending=True, stable=True)
+    vals, slots = vals[:, :s], slots[:, :s]
+    # a draw of exactly 0.0 is a valid leader: the boundary is inclusive
+    return slots.to(torch.int32), vals >= 0.0

@@ -1,0 +1,129 @@
+"""Plain PyTorch versions of the port's kernels (``repro.kernels.ref``).
+
+These are the semantics of record: on a CPU tensor the dispatcher
+(``kernels/ops.py``) runs them, and ``chip_smoke.py`` holds each CUDA
+kernel against them on the card.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+_BIG = 2**31 - 1
+
+
+def leader_score_ref(leaders: torch.Tensor, members: torch.Tensor,
+                     leader_ok: torch.Tensor, member_ok: torch.Tensor, *,
+                     normalized: bool = True) -> torch.Tensor:
+    """Masked leader x member similarity tiles.
+
+    leaders: (nw, s, d); members: (nw, w, d); masks (nw, s) / (nw, w).
+    Returns (nw, s, w) float32, -inf where masked.  Cosine when
+    ``normalized`` (rows divided by sqrt(sum x^2 + 1e-12)), else dot.
+    """
+    la = leaders.to(torch.float32)
+    mb = members.to(torch.float32)
+    if normalized:
+        nrm = lambda t: t / torch.sqrt((t * t).sum(-1, keepdim=True) + 1e-12)
+        la, mb = nrm(la), nrm(mb)
+    sims = torch.bmm(la, mb.transpose(1, 2))
+    mask = leader_ok[:, :, None] & member_ok[:, None, :]
+    return torch.where(mask, sims, torch.full_like(sims, float("-inf")))
+
+
+def window_score_ref(leaders: torch.Tensor, members: torch.Tensor,
+                     leader_slot: torch.Tensor, lead_gid: torch.Tensor,
+                     gid: torch.Tensor, leader_ok: torch.Tensor,
+                     member_ok: torch.Tensor, lead_bucket: torch.Tensor,
+                     bucket: torch.Tensor, keep: torch.Tensor, *,
+                     normalized: bool = True, allpairs: bool = False,
+                     match_bucket: bool = False, new_from: int = 0,
+                     refresh_below: int = 0, r1: Optional[float] = None):
+    """Fused Stars window scoring: similarity tiles + the full emit mask.
+
+    leaders: (nw, s, d); members: (nw, w, d); leader_slot / lead_gid /
+    leader_ok / lead_bucket: (nw, s); gid / member_ok / bucket: (nw, w);
+    keep: (nw,) bool (the refresh window sample; read only when
+    ``refresh_below`` > 0).  Buckets are int32 bit patterns.
+
+    Returns ``(sims, emit, comparisons, emitted)``: (nw, s, w) float32
+    similarities (-inf outside ``leader_ok & member_ok``), the (nw, s, w)
+    bool emit mask and per-window int32 counts.
+    """
+    sims = leader_score_ref(leaders, members, leader_ok, member_ok,
+                            normalized=normalized)
+    w = members.shape[1]
+    slot = torch.arange(w, dtype=torch.int32, device=members.device)
+    slot = slot[None, None, :]
+    lslot = leader_slot[:, :, None]
+    mask = leader_ok[:, :, None] & member_ok[:, None, :]
+    mask &= lslot != slot                  # self slot
+    if allpairs:
+        mask &= lslot < slot               # each unordered pair once
+    if match_bucket:
+        mask &= lead_bucket[:, :, None] == bucket[:, None, :]
+    if new_from > 0:
+        mask &= (lead_gid[:, :, None] >= new_from) | (gid[:, None, :] >= new_from)
+    if refresh_below > 0:
+        mask &= keep[:, None, None]
+        mask &= ((lead_gid[:, :, None] < refresh_below)
+                 & (gid[:, None, :] < refresh_below))
+    comparisons = mask.sum((1, 2), dtype=torch.int32)
+    emit = mask
+    if r1 is not None:
+        emit = emit & (sims > torch.tensor(r1, dtype=torch.float32,
+                                           device=sims.device))
+    emitted = emit.sum((1, 2), dtype=torch.int32)
+    return sims, emit, comparisons, emitted
+
+
+def f32_sort_key(x: torch.Tensor) -> torch.Tensor:
+    """int64 in [0, 2**32) ordered like the float32 values of ``x``.
+
+    As ``lax.sort`` compares floats: -0.0 equals 0.0 and NaN sorts last.
+    """
+    x = torch.where(x == 0, torch.zeros_like(x), x)
+    x = torch.where(torch.isnan(x), torch.full_like(x, float("nan")).abs(), x)
+    b = x.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return torch.where(b >= 2**31, b ^ 0xFFFFFFFF, b | 2**31)
+
+
+def topk_merge_ref(slab_nbr: torch.Tensor, slab_w: torch.Tensor,
+                   inc_nbr: torch.Tensor, inc_w: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-node top-k degree-slab merge.
+
+    slab_nbr/slab_w: (n, k); inc_nbr/inc_w: (n, kin); -1 / -inf mark
+    empty slots.  Per row: dedup by neighbour keeping the max weight (the
+    earlier position on an exact tie), then keep the k heaviest survivors
+    ordered by (weight desc, nbr asc), with a -1 / -inf tail.
+    """
+    k = slab_nbr.shape[1]
+    nbr = torch.cat([slab_nbr, inc_nbr], 1).to(torch.int64)     # (n, K)
+    w = torch.cat([slab_w, inc_w], 1).to(torch.float32)
+    valid = nbr >= 0
+    negw = torch.where(valid, -w, torch.full_like(w, float("inf")))
+    nbr_key = torch.where(valid, nbr, torch.full_like(nbr, _BIG))
+    # group instances of a neighbour together, heaviest first; the stable
+    # sort keeps the earlier position first on an exact tie
+    order = torch.sort((nbr_key << 32) | f32_sort_key(negw), dim=1,
+                       stable=True).indices
+    nbr_s = nbr_key.gather(1, order)
+    negw_s = negw.gather(1, order)
+    first = torch.ones_like(valid)
+    first[:, 1:] = nbr_s[:, 1:] != nbr_s[:, :-1]
+    keep = first & (nbr_s != _BIG)
+    # rank survivors by (w desc, nbr asc); dropped instances sort last
+    negw2 = torch.where(keep, negw_s, torch.full_like(negw_s, float("inf")))
+    nbr2 = torch.where(keep, nbr_s, torch.full_like(nbr_s, _BIG))
+    order2 = torch.sort((f32_sort_key(negw2) << 31) | nbr2, dim=1,
+                        stable=True).indices[:, :k]
+    negw_f = negw2.gather(1, order2)
+    nbr_f = nbr2.gather(1, order2)
+    out_valid = negw_f != float("inf")
+    out_nbr = torch.where(out_valid, nbr_f, torch.full_like(nbr_f, -1))
+    out_w = torch.where(out_valid, -negw_f,
+                        torch.full_like(negw_f, float("-inf")))
+    return out_nbr.to(torch.int32), out_w
