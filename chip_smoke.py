@@ -9,7 +9,7 @@ Phases, one JSON line each; any failed check exits non-zero:
   2. build:   compile every kernel from src/repro_torch/csrc/ (one nvcc per
               source, all started together).
   3. kernels: each kernel against its plain PyTorch version on the card, on
-              a sweep of edge shapes and at the main path's shapes, with
+              a sweep of edge shapes and at the main paths' shapes, with
               its time there, the plain version's, a one-call library
               yardstick where one exists, and its bound.
   4. e2e:     GraphBuilder(x, StarsConfig()).add_reps().finalize() at
@@ -17,8 +17,13 @@ Phases, one JSON line each; any failed check exits non-zero:
               seeded torch.Generator), with the kernels' launch counts over
               that run and two-hop recall@10 against exact neighbours;
               then one more repetition under torch.profiler.
-  5. parity:  the same build at n = 20,000 on CUDA and on the CPU (plain
-              versions); comparisons equal, edge sets equal up to reported
+  5. e2e_lsh: LSH-Stars (Stars 1) on the same points: SimHash M = 16,
+              bucket cap W = 10,000, r = 25.
+  6. e2e_prefilter: the default SortingLSH build with the 64-bit Hamming
+              prefilter (max distance 24), on the same points.
+  7. parity:  the default, LSH-Stars, LSH all-pairs and prefilter builds
+              at n = 20,000 on CUDA and on the CPU (plain versions);
+              comparisons equal, edge sets equal up to reported
               slab-boundary near-ties.
 
 The last lines are the kernels' summary, the card's name and power limit
@@ -38,7 +43,9 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 FP32_FLOP_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
+FP64_FLOP_PER_S = 67e12         # H100 SXM fp64 on the tensor cores (DMMA)
 SEED = 0
+N_E2E, D_E2E = 1 << 20, 128
 
 
 def emit(obj) -> None:
@@ -74,9 +81,10 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(bytes_moved: int, flops: float) -> dict:
+def bound(bytes_moved: int, flops: float,
+          flop_per_s: float = FP32_FLOP_PER_S) -> dict:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    t_ops = flops / flop_per_s * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -123,10 +131,11 @@ def window_score_inputs(torch, gen, nw, s, w, d):
 
 
 # (normalized, allpairs, match_bucket, new_from, refresh_below, r1): the
-# seven mask-chain variants of tests/test_kernels.py; the first is the
-# main path's
+# seven mask-chain variants of tests/test_kernels.py and the LSH all-pairs
+# build's; the first is the main path's
 WINDOW_SCORE_VARIANTS = [
     (True, False, False, 0, 0, None),
+    (True, True, True, 0, 0, None),
     (False, False, False, 0, 0, None),
     (True, True, False, 0, 0, None),
     (True, False, True, 0, 0, None),
@@ -172,10 +181,11 @@ def check_window_score(torch, args, variant) -> float:
 
 
 # Other (nw, s, W, d): the tests' shapes, s > 32 (several leader tiles, as
-# all-pairs scoring gives), and d not a multiple of 4
+# all-pairs scoring gives), d not a multiple of 4, and the LSH all-pairs
+# parity build's W = 1,000 windows
 WINDOW_SCORE_SWEEP = [(1, 4, 8, 16), (5, 8, 24, 16), (3, 25, 250, 64),
                       (2, 1, 16, 8), (6, 250, 250, 128), (4, 40, 100, 7),
-                      (2, 33, 65, 33)]
+                      (2, 33, 65, 33), (20, 1000, 1000, 128)]
 
 
 def phase_window_score(torch) -> dict:
@@ -274,6 +284,149 @@ def phase_topk_merge(torch) -> dict:
             **bound(moved, float(n) * (k + kin) * math.log2(k + kin))}
 
 
+def leader_score_inputs(torch, gen, nw, s, w, d, masked=True):
+    """Random tiles, rows scaled by 1/sqrt(d); with ``masked`` about 30 %
+    of each mask is off, else every row is valid (as the builds pass)."""
+    rows = lambda shape: torch.randn(shape, generator=gen,
+                                     device="cuda") / math.sqrt(d)
+    ok = lambda shape: (torch.rand(shape, generator=gen, device="cuda") > 0.3
+                        if masked else torch.ones(shape, dtype=torch.bool,
+                                                  device="cuda"))
+    return rows((nw, s, d)), rows((nw, w, d)), ok((nw, s)), ok((nw, w))
+
+
+def check_leader_score(torch, args, normalized) -> float:
+    """Hold the kernel against its plain version: the same -inf pattern,
+    finite similarities within 1e-5; returns the largest difference."""
+    from repro_torch.kernels import leader_score as ls
+    from repro_torch.kernels import ref
+    shape = tuple(args[0].shape) + (args[1].shape[1],)
+    what = f"leader_score (nw, s, d, W)={shape} normalized={normalized} " \
+        f"design={ls.auto_path(shape[1], shape[3])}"
+    got = ls.leader_score(*args, normalized=normalized)
+    want = ref.leader_score_ref(*args, normalized=normalized)
+    torch.cuda.synchronize()
+    check(torch.equal(torch.isneginf(got), torch.isneginf(want)),
+          f"{what}: -inf pattern differs")
+    fin = torch.isfinite(want)
+    err = (got[fin] - want[fin]).abs().max().item() if fin.any() else 0.0
+    check(err <= 1e-5, f"{what}: sims differ by {err}")
+    return err
+
+
+# (nw, s, W, d): the tests' shapes, the 1 x 1 tiles of LSH-Stars, s > 32
+# (several leader tiles) and d not a multiple of 4, for each of the
+# kernel's designs (tile where s * W >= 256, else rows), with tiles on
+# either side of 256
+LEADER_SCORE_SWEEP = [(1, 4, 8, 16), (5, 8, 24, 16), (3, 25, 250, 64),
+                      (2, 1, 16, 8), (1000, 1, 1, 16), (6, 40, 100, 128),
+                      (4, 33, 65, 7), (7, 3, 5, 33), (3, 1, 1, 5),
+                      (3, 16, 16, 9), (3, 15, 17, 9), (2, 40, 6, 33),
+                      (2, 1, 256, 16)]
+
+
+def phase_leader_score(torch) -> dict:
+    from repro_torch.core.windows import window_slot_count
+    from repro_torch.kernels import leader_score as ls
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    for nw, s, w, d in LEADER_SCORE_SWEEP:
+        args = leader_score_inputs(torch, gen, nw, s, w, d)
+        err = max(check_leader_score(torch, args, normalized)
+                  for normalized in (True, False))
+        emit({"phase": "kernels", "kernel": "leader_score",
+              "shape": [nw, s, w, d], "path": ls.auto_path(s, w),
+              "max_abs_err": err})
+    shapes = []
+    # the two builds' calls: LSH-Stars scores every slot of its grid
+    # against its bucket's leader as (slots, 1, 1) tiles; the prefilter
+    # path scores (windows, 25, 250) tiles
+    for label, (nw, s, w) in (
+            ("lsh_stars", (window_slot_count("lsh", N_E2E, 10_000), 1, 1)),
+            ("prefilter", (window_slot_count("sorting", N_E2E, 250) // 250,
+                           25, 250))):
+        d = D_E2E
+        args = leader_score_inputs(torch, gen, nw, s, w, d, masked=False)
+        err = check_leader_score(torch, args, True)
+        ms = cuda_ms(torch, lambda: ls.leader_score(*args), 20)
+        plain_ms = cuda_ms(torch, lambda: ref.leader_score_ref(*args), 5)
+        if s == w == 1:
+            # one call for the cosine of row pairs
+            a, b = args[0][:, 0], args[1][:, 0]
+            library_ms = cuda_ms(torch, lambda: torch.nn.functional
+                                 .cosine_similarity(a, b, dim=-1), 20)
+            library = "torch.nn.functional.cosine_similarity"
+        else:
+            nrm = lambda t: t / torch.sqrt((t * t).sum(-1, keepdim=True)
+                                           + 1e-12)
+            la, mb = nrm(args[0]), nrm(args[1]).transpose(1, 2)
+            library_ms = cuda_ms(torch, lambda: torch.bmm(la, mb), 20)
+            library = "torch.bmm of the normalised tiles (product only)"
+        moved = nbytes(*args) + nw * s * w * 4
+        row = {"at": label, "shape": [nw, s, w, d],
+               "path": ls.auto_path(s, w), "max_abs_err": err, "ms": ms,
+               "plain_ms": plain_ms, "library_ms": library_ms,
+               "library": library, **bound(moved, 2.0 * nw * s * w * d)}
+        emit({"phase": "kernels", "kernel": "leader_score", **row})
+        shapes.append(row)
+        del args
+        torch.cuda.empty_cache()
+    lsh = shapes[0]
+    return {"name": "leader_score", "route": "cuda",
+            "source": "src/repro_torch/csrc/leader_score.cu",
+            "replaces": "src/repro/kernels/leader_score.py:44",
+            "max_abs_err": max(r["max_abs_err"] for r in shapes),
+            **{k: lsh[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms")},
+            "shapes": shapes}
+
+
+def check_simhash(torch, x, proj) -> None:
+    """Hold the kernel against its plain version: bit-equal words."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import simhash as sh
+    what = f"simhash_packed (n, d, m)={(*x.shape, proj.shape[1])}"
+    got = sh.simhash_packed(x, proj)
+    want = ref.simhash_packed_ref(x, proj)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), f"{what}: words differ")
+
+
+# (n, d, m): the tests' shapes, m not a multiple of 32, d past one staged
+# chunk and not a multiple of it, and a row count past one block
+SIMHASH_SWEEP = [(8, 16, 32), (70, 40, 64), (128, 64, 128), (33, 7, 96),
+                 (50, 16, 40), (129, 33, 40), (1, 5, 1), (1000, 128, 64),
+                 (300, 784, 100)]
+
+
+def phase_simhash(torch) -> dict:
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import simhash as sh
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    randn = lambda shape: torch.randn(shape, generator=gen, device="cuda")
+    for n, d, m in SIMHASH_SWEEP:
+        check_simhash(torch, randn((n, d)), randn((d, m)))
+    emit({"phase": "kernels", "kernel": "simhash_packed",
+          "shapes": SIMHASH_SWEEP, "bit_equal": True})
+    n, d, m = N_E2E, D_E2E, 64          # the prefilter sketch of 2**20 points
+    x, proj = randn((n, d)), randn((d, m))
+    check_simhash(torch, x, proj)
+    ms = cuda_ms(torch, lambda: sh.simhash_packed(x, proj), 20)
+    plain_ms = cuda_ms(torch, lambda: ref.simhash_packed_ref(x, proj), 5)
+    # the fp32 product alone, the most a library call does of it
+    library_ms = cuda_ms(torch, lambda: torch.matmul(x, proj), 20)
+    moved = nbytes(x, proj) + n * ((m + 31) // 32) * 4
+    row = {"name": "simhash_packed", "route": "cuda",
+           "source": "src/repro_torch/csrc/simhash_packed.cu",
+           "replaces": "src/repro/kernels/simhash.py:35",
+           "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+           "library_ms": library_ms,
+           **bound(moved, 2.0 * n * d * m, FP64_FLOP_PER_S)}
+    emit({"phase": "kernels", "kernel": "simhash_packed",
+          "shape": [n, d, m], "bit_equal": True, **row})
+    return row
+
+
 def clustered_points(torch, n, d, classes, spread, seed, device):
     gen = torch.Generator(device=device).manual_seed(seed)
     centers = torch.randn((classes, d), generator=gen, device=device)
@@ -283,22 +436,37 @@ def clustered_points(torch, n, d, classes, spread, seed, device):
     return centers[label] + spread * noise
 
 
-def phase_e2e(torch) -> dict:
-    """The main path at n = 2**20; returns each kernel's launch count."""
+def kernel_modules():
+    from repro_torch.kernels import leader_score, simhash, topk_merge
+    from repro_torch.kernels import window_score
+    return {"window_score": window_score, "topk_merge": topk_merge,
+            "leader_score": leader_score, "simhash_packed": simhash}
+
+
+def exact_neighbours(torch, x, queries, k=10):
+    """Top-k cosine neighbours of the query rows among all rows of x."""
+    xn = x / x.norm(dim=-1, keepdim=True)
+    sims = xn[queries] @ xn.T
+    sims[torch.arange(queries.shape[0], device=x.device), queries] = \
+        float("-inf")
+    return list(sims.topk(k, dim=1).indices.cpu().numpy())
+
+
+def run_build(torch, phase, x, cfg, need, extra=None):
+    """One path of the port: GraphBuilder(x, cfg).add_reps().finalize()
+    with every launch count set to 0 just before and read just after.
+    ``need`` maps a kernel to a check on its count.  Returns the launch
+    counts and the builder (for a profile)."""
     import numpy as np
-    from repro_torch import GraphBuilder, StarsConfig
+    from repro_torch import GraphBuilder
     from repro_torch.graph.metrics import neighbor_recall
-    from repro_torch.kernels import topk_merge as tm
-    from repro_torch.kernels import window_score as ws
-    n, d = 1 << 20, 128
-    cfg = StarsConfig()
-    x = clustered_points(torch, n, d, classes=1000, spread=0.05, seed=SEED,
-                         device="cuda")
+    n, d = x.shape
+    mods = kernel_modules()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    for mod in mods.values():
+        mod.launches = 0
     builder = GraphBuilder(x, cfg)
-    ws.launches = 0
-    tm.launches = 0
     rep_s = []
     t0 = time.perf_counter()
     for _ in range(cfg.r):
@@ -307,50 +475,93 @@ def phase_e2e(torch) -> dict:
         torch.cuda.synchronize()
         rep_s.append(time.perf_counter() - t)
     reps_s = time.perf_counter() - t0
-    launches = {"window_score": ws.launches, "topk_merge": tm.launches}
-    check(ws.launches > 0 and tm.launches > 0,
-          f"main path missed a kernel: {launches}")
+    launches = {name: mod.launches for name, mod in mods.items()}
+    for name, ok in need.items():
+        check(ok(launches[name]),
+              f"{phase}: {name} launched {launches[name]} times: {launches}")
     peak = torch.cuda.max_memory_allocated()
     t = time.perf_counter()
     graph = builder.finalize()
     finalize_s = time.perf_counter() - t
     stats = graph.stats
-    check(graph.num_edges > 0, "no edges")
-    check(bool(np.isfinite(graph.w).all()), "non-finite edge weight")
+    check(graph.num_edges > 0, f"{phase}: no edges")
+    check(bool(np.isfinite(graph.w).all()), f"{phase}: non-finite weight")
     check(bool((np.abs(graph.w) <= 1.0 + 1e-5).all()),
-          "cosine weight out of [-1, 1]")
+          f"{phase}: cosine weight out of [-1, 1]")
     check(bool((graph.src < graph.dst).all() and (graph.dst < n).all()),
-          "edge ids out of canonical range")
-    check(stats["comparisons"] > 0, "no comparisons")
+          f"{phase}: edge ids out of canonical range")
+    check(stats["comparisons"] > 0, f"{phase}: no comparisons")
     # two-hop recall@10 on 1,000 queries against exact neighbours
     t = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     queries = torch.randint(0, n, (1000,), generator=gen, device="cuda")
-    xn = x / x.norm(dim=-1, keepdim=True)
-    sims = xn[queries] @ xn.T
-    sims[torch.arange(1000, device="cuda"), queries] = float("-inf")
-    truth = sims.topk(10, dim=1).indices.cpu().numpy()
-    del sims
-    recall = neighbor_recall(graph, queries.cpu().numpy(), list(truth),
-                             hops=2, k_cap=10)
+    truth = exact_neighbours(torch, x, queries)
+    recall = neighbor_recall(graph, queries.cpu().numpy(), truth, hops=2,
+                             k_cap=10)
     recall_s = time.perf_counter() - t
-    check(0.0 < recall <= 1.0, f"two-hop recall@10 {recall}")
-    emit({"phase": "e2e", "n": n, "d": d, "r": cfg.r, "window": cfg.window,
-          "leaders": cfg.leaders, "degree_cap": cfg.degree_cap,
+    check(0.0 < recall <= 1.0, f"{phase}: two-hop recall@10 {recall}")
+    emit({"phase": phase, "n": n, "d": d, "mode": cfg.mode,
+          "scoring": cfg.scoring, "m": cfg.family.m, "r": cfg.r,
+          "window": cfg.window, "leaders": cfg.leaders,
+          "degree_cap": cfg.degree_cap,
+          "hamming_prefilter": [cfg.hamming_prefilter_bits,
+                                cfg.hamming_prefilter_max],
           "seconds_per_rep": rep_s, "reps_seconds": reps_s,
           "finalize_seconds": finalize_s, "recall_seconds": recall_s,
           "comparisons": stats["comparisons"], "emitted": stats["emitted"],
+          "prefilter_ops": stats["prefilter_ops"],
           "edges": graph.num_edges, "launches": launches,
-          "peak_device_bytes": peak, "two_hop_recall_at_10": recall})
-    del graph
-    phase_profile(torch, builder)
-    del builder, x
+          "peak_device_bytes": peak, "two_hop_recall_at_10": recall,
+          **(extra or {})})
+    return launches, builder
+
+
+def phase_e2e(torch, x) -> dict:
+    """The main path at n = 2**20; returns each kernel's launch count."""
+    from repro_torch import StarsConfig
+    launches, builder = run_build(
+        torch, "e2e", x, StarsConfig(),
+        {"window_score": lambda c: c > 0, "topk_merge": lambda c: c > 0})
+    phase_profile(torch, "e2e", builder)
+    del builder
     torch.cuda.empty_cache()
     return launches
 
 
-def phase_profile(torch, builder) -> None:
-    """One more repetition under torch.profiler: the device's busy and
+# LSH-Stars (Stars 1): SimHash M = 16 (the paper's M ~ log2(n / 15) at
+# n = 2**20) and the paper's Stars bucket cap W = 10,000
+LSH_STARS = dict(mode="lsh", scoring="stars", window=10_000, r=25,
+                 degree_cap=250)
+# the default SortingLSH build with the tests/test_system.py prefilter
+PREFILTER = dict(hamming_prefilter_bits=64, hamming_prefilter_max=24)
+
+
+def phase_e2e_lsh(torch, x) -> dict:
+    from repro_torch import HashFamilyConfig, StarsConfig
+    cfg = StarsConfig(family=HashFamilyConfig("simhash", m=16), **LSH_STARS)
+    launches, builder = run_build(
+        torch, "e2e_lsh", x, cfg,
+        {"leader_score": lambda c: c > 0, "topk_merge": lambda c: c > 0})
+    phase_profile(torch, "e2e_lsh", builder)
+    del builder
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_e2e_prefilter(torch, x) -> dict:
+    from repro_torch import StarsConfig
+    launches, builder = run_build(
+        torch, "e2e_prefilter", x, StarsConfig(**PREFILTER),
+        {"simhash_packed": lambda c: c == 1,
+         "leader_score": lambda c: c > 0, "topk_merge": lambda c: c > 0})
+    phase_profile(torch, "e2e_prefilter", builder)
+    del builder
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_profile(torch, path, builder) -> None:
+    """One more repetition of ``path`` under torch.profiler: the device's busy and
     idle share of its wall time (profiler on) and device time by kernel
     and by the PyTorch operator that launched it."""
     from torch.autograd import DeviceType
@@ -375,19 +586,18 @@ def phase_profile(torch, builder) -> None:
            and e.self_device_time_total > 0}
     busy_ms = sum(kernels.values())
     top = lambda d: dict(sorted(d.items(), key=lambda kv: -kv[1])[:12])
-    emit({"phase": "profile", "wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
+    emit({"phase": "profile", "path": path, "wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
           "device_idle_share": 1.0 - busy_ms / (wall * 1e3),
           "kernel_launches": sum(e.count for e in events
                                  if e.device_type == DeviceType.CUDA),
           "top_kernels_ms": top(kernels), "top_ops_ms": top(ops)})
 
 
-def phase_parity(torch) -> None:
-    from repro_torch import GraphBuilder, StarsConfig
+def phase_parity(torch, name, cfg) -> None:
+    from repro_torch import GraphBuilder
     from repro_torch.graph.accumulator import to_host
     from repro_torch.testing import compare_builds, slab_boundary
     n, d = 20_000, 128
-    cfg = StarsConfig()
     x = clustered_points(torch, n, d, classes=1000, spread=0.05,
                          seed=SEED + 3, device="cuda")
     builds = {}
@@ -400,15 +610,28 @@ def phase_parity(torch) -> None:
     (g_gpu, bound_gpu, s_gpu), (g_cpu, bound_cpu, s_cpu) = \
         builds["cuda"], builds["cpu"]
     diff = compare_builds(g_gpu, g_cpu, bound_gpu, bound_cpu)
-    emit({"phase": "parity", "n": n, "cuda_seconds": s_gpu,
+    emit({"phase": "parity", "config": name, "n": n, "cuda_seconds": s_gpu,
           "cpu_seconds": s_cpu,
           "comparisons": [g_gpu.stats["comparisons"],
-                          g_cpu.stats["comparisons"]], **diff})
-    check(g_gpu.stats["comparisons"] == g_cpu.stats["comparisons"],
-          "comparisons differ between CUDA and CPU builds")
+                          g_cpu.stats["comparisons"]],
+          "prefilter_ops": [g_gpu.stats["prefilter_ops"],
+                            g_cpu.stats["prefilter_ops"]], **diff})
+    check(g_gpu.stats == g_cpu.stats,
+          f"{name}: stats differ between CUDA and CPU builds")
     check(diff["unexplained"] == 0,
-          f"edge sets differ beyond slab-boundary near-ties: {diff}")
-    check(diff["max_weight_diff"] <= 1e-6, f"edge weights differ: {diff}")
+          f"{name}: edge sets differ beyond slab-boundary near-ties: {diff}")
+    check(diff["max_weight_diff"] <= 1e-6, f"{name}: edge weights differ: "
+          f"{diff}")
+
+
+def parity_configs():
+    from repro_torch import HashFamilyConfig, StarsConfig
+    m16 = HashFamilyConfig("simhash", m=16)
+    return {"default": StarsConfig(),
+            "lsh-stars": StarsConfig(family=m16, **LSH_STARS),
+            "lsh-allpairs": StarsConfig(mode="lsh", scoring="allpairs",
+                                        family=m16, window=1000, r=5),
+            "prefilter": StarsConfig(**PREFILTER)}
 
 
 def main() -> int:
@@ -422,14 +645,24 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi = phase_device(torch)
     phase_build()
-    kernels = [phase_window_score(torch)]
+    kernels = []
+    for phase in (phase_window_score, phase_topk_merge, phase_leader_score,
+                  phase_simhash):
+        kernels.append(phase(torch))
+        torch.cuda.empty_cache()
+    x = clustered_points(torch, N_E2E, D_E2E, classes=1000, spread=0.05,
+                         seed=SEED, device="cuda")
+    by_path = {"e2e": phase_e2e(torch, x),
+               "e2e_lsh": phase_e2e_lsh(torch, x),
+               "e2e_prefilter": phase_e2e_prefilter(torch, x)}
+    del x
     torch.cuda.empty_cache()
-    kernels.append(phase_topk_merge(torch))
-    torch.cuda.empty_cache()
-    launches = phase_e2e(torch)
-    phase_parity(torch)
+    for name, cfg in parity_configs().items():
+        phase_parity(torch, name, cfg)
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches"] = sum(c[k["name"]] for c in by_path.values())
+        k["launches_by_path"] = {p: c[k["name"]] for p, c in by_path.items()}
+        check(k["launches"] > 0, f"{k['name']} was never launched")
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -9,9 +9,10 @@ candidate stream into them, and ``finalize`` fetches them once and compacts
 them into a :class:`Graph`.  The session runs on CUDA unless the caller
 passes ``device="cpu"``, where every kernel runs as its plain version.
 
-Ported so far: the single-device backend with the windowed SortingLSH
-source (Stars and all-pairs scoring), ``add_reps``, ``finalize`` and
-``stats``.  ``extend`` / ``refresh_reps``, checkpoints, delta finalize, the
+Ported so far: the single-device backend with the windowed LSH and
+SortingLSH sources (Stars and all-pairs scoring, with or without the
+Hamming prefilter), ``add_reps``, ``finalize`` and ``stats``.
+``extend`` / ``refresh_reps``, checkpoints, delta finalize, the
 brute-force 'allpairs' source, paged feature stores, the pair-score cache
 and the mesh come in later slices; configs that need them raise
 ``NotImplementedError``.
@@ -25,7 +26,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.spanner import Graph
-from repro_torch.core.stars import StarsConfig, _rep_candidates
+from repro_torch.core.stars import (StarsConfig, _prefilter_sketch,
+                                    _rep_candidates)
 from repro_torch.device import DeviceLike, as_tensor, resolve_device
 from repro_torch.graph import accumulator as acc_lib
 from repro_torch.similarity.measures import PointFeatures
@@ -34,11 +36,12 @@ _COUNTERS = ("comparisons", "emitted", "prefilter_ops", "scored_windows")
 
 
 class RepetitionSource:
-    """Windowed SortingLSH repetitions (Stars 2 and its all-pairs scoring).
+    """Windowed LSH / SortingLSH repetitions (Stars 1/2 and non-Stars).
 
     One round is one repetition: sketch with a fresh hash draw, sort and
     window, score the leader tiles and fold the masked candidate stream
-    into the slabs.
+    into the slabs.  The prefilter's packed sketch is computed once per
+    bind, as in the JAX package.
     """
 
     def __init__(self, cfg: StarsConfig):
@@ -46,9 +49,12 @@ class RepetitionSource:
 
     def bind(self, features: PointFeatures) -> Callable:
         cfg = self.cfg
+        prefilter = (
+            _prefilter_sketch(features, cfg.hamming_prefilter_bits, cfg.seed)
+            if cfg.hamming_prefilter_bits > 0 else None)
 
         def round_step(state: acc_lib.EdgeAccumulator, rep_index: int):
-            out = _rep_candidates(cfg, features, rep_index)
+            out = _rep_candidates(cfg, features, prefilter, rep_index)
             state = acc_lib.accumulate(state, out["src"], out["dst"],
                                        out["w"], out["emit"])
             return state, {k: out[k] for k in _COUNTERS}
@@ -57,6 +63,8 @@ class RepetitionSource:
 
 
 CANDIDATE_SOURCES: Dict[str, Callable] = {
+    "lsh-stars": RepetitionSource,
+    "lsh-allpairs": RepetitionSource,
     "sorting-stars": RepetitionSource,
     "sorting-allpairs": RepetitionSource,
 }
@@ -95,8 +103,6 @@ def _check_ported(cfg: StarsConfig) -> None:
         "refresh_rate": (cfg.refresh_rate, 0.0),
         "feature_store": (cfg.feature_store, "resident"),
         "pair_cache_slots": (cfg.pair_cache_slots, 0),
-        "hamming_prefilter_bits": (cfg.hamming_prefilter_bits, 0),
-        "mode": (cfg.mode, "sorting"),
     }
     for field, (value, default) in unported.items():
         if value != default:

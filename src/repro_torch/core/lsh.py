@@ -2,7 +2,9 @@
 
 h(x) = sign(<x, z>), z ~ N(0, I), M slots per repetition.  The projection
 is drawn with :mod:`repro_torch.prng` from the same key as the JAX
-package, so the sketch words agree bit for bit.  MinHash, weighted MinHash
+package, so the sketch words agree bit for bit.  LSH mode folds a sketch
+into one bucket id (:func:`bucket_key`); the Hamming prefilter compares
+packed sketches (:func:`hamming_pairwise`).  MinHash, weighted MinHash
 and the mixture family come with the non-dense measures in a later slice.
 """
 
@@ -13,6 +15,7 @@ import dataclasses
 import torch
 
 from repro_torch import prng
+from repro_torch.core import hashing
 from repro_torch.similarity.measures import PointFeatures
 
 
@@ -55,6 +58,23 @@ def pack_bits(bits: torch.Tensor) -> torch.Tensor:
     return (b << shifts).sum(-1)
 
 
+def hamming_pairwise(packed_a: torch.Tensor,
+                     packed_b: torch.Tensor) -> torch.Tensor:
+    """Pairwise Hamming distance between packed sketches.
+
+    packed_a: (..., A, w); packed_b: (..., B, w) uint32 words carried in
+    int64 -> (..., A, B) int32.  The JAX package's popcount bit trick; in
+    int64 the byte sum ``(x * 0x01010101) >> 24`` keeps the bits above 32,
+    so it is masked to 8 bits.
+    """
+    x = packed_a[..., :, None, :] ^ packed_b[..., None, :, :]
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    x = ((x * 0x01010101) >> 24) & 0xFF
+    return x.sum(-1, dtype=torch.int32)
+
+
 def sketch(features: PointFeatures, cfg: HashFamilyConfig, *,
            rep_seed: int) -> torch.Tensor:
     """One repetition's sketch: (n, M) bool SimHash bits.
@@ -71,3 +91,13 @@ def sketch(features: PointFeatures, cfg: HashFamilyConfig, *,
     proj = prng.normal(k, (features.dense.shape[-1], cfg.m),
                        device=features.device)
     return simhash_bits(features.dense, proj)
+
+
+def bucket_key(bits: torch.Tensor, cfg: HashFamilyConfig) -> torch.Tensor:
+    """Fold an (n, M) SimHash sketch into one uint32 bucket id per point
+    (LSH mode, Stars 1), carried in int64: equal sketches, equal ids."""
+    if cfg.kind != "simhash":
+        raise NotImplementedError(
+            f"bucket_key for hash family {cfg.kind!r} is not ported yet "
+            "(only 'simhash')")
+    return hashing.fold_words(pack_bits(bits.to(torch.bool)))

@@ -1,23 +1,34 @@
-"""The Stars per-repetition program (``repro.core.stars``), SortingLSH path.
+"""The Stars per-repetition program (``repro.core.stars``).
 
 Each repetition r of R:
   1. sketch the points with a fresh SimHash draw (core/lsh.py),
-  2. sort + window them (core/windows.py) with a random tiebreak and a
-     random window shift,
-  3. sample ``s`` random leaders per window (Stars) or take all pairs
-     (non-Stars),
-  4. score leader x member tiles and build the emit mask in one fused op,
-     ``window_score`` (the CUDA kernel on the card, the plain version on
-     the CPU), and hand the masked candidate stream to the accumulator.
+  2. sort + window them (core/windows.py) with a random tiebreak: LSH
+     buckets capped at W (Stars 1, ``mode='lsh'``) or SortingLSH blocks
+     with a random window shift (Stars 2, ``mode='sorting'``),
+  3. compare every member with its bucket's first member (LSH-Stars), or
+     with ``s`` random leaders per window (SortingLSH Stars), or take all
+     pairs (non-Stars),
+  4. score the pairs and build the emit mask, and hand the masked
+     candidate stream to the accumulator.
+
+Scoring runs on hand-written kernels (their plain versions on the CPU):
+``window_score`` scores and masks whole windows in one call;
+``leader_score`` scores the gathered tiles of LSH-Stars and of the Hamming
+prefilter path, whose packed sketch comes from ``simhash_packed``.
 
 Every draw comes from the same threefry keys as the JAX package
 (:mod:`repro_torch.prng`), so the windows, leaders, masks and comparison
 counts are identical to a JAX build of the same config.
 
-Ported so far: SortingLSH mode with Stars or all-pairs scoring, dense
-cosine / dot measures, no Hamming prefilter.  LSH-Stars (``mode='lsh'``),
-the prefilter and the non-dense measures raise ``NotImplementedError``;
-they come with the other single-device sources.
+Batching: the JAX package scores the LSH-Stars and prefilter paths in
+``lax.map`` chunks of ``score_chunk * 8`` and ``score_chunk`` windows, a
+TPU memory knob.  The port scores a whole repetition in one call on either
+path: every window's stream entries and masks are those of the chunked
+program, and its per-window counters sum to the same totals.
+
+Ported so far: both modes, Stars and all-pairs scoring, the Hamming
+prefilter, dense cosine / dot measures, no extension or refresh rounds.
+The non-dense measures raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -39,8 +50,7 @@ from repro_torch.similarity.store import masked_take
 # sort keys must be identical for edge-for-edge parity).
 TIEBREAK_BITS = 20
 
-_LATER = ("is not ported yet; it comes with the other single-device "
-          "sources (LSH-Stars, the Hamming prefilter, non-dense measures)")
+_LATER = ("is not ported yet; it comes with the non-dense measures")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,53 +130,134 @@ def _rep_keys(cfg: StarsConfig, rep_index: int):
     return k_tie, k_shift, k_lead, prng.fold_in(k, 0x5EF5)
 
 
+def _prefilter_sketch(features: PointFeatures, bits: int,
+                      seed: int) -> torch.Tensor:
+    """Packed SimHash words shared by all repetitions (prefilter only).
+
+    The JAX package's draw: ``normal(fold_in(key(seed), 0xBEEF), (d,
+    bits))``.  Returns (n, ceil(bits/32)) uint32 words carried in int64,
+    as :func:`lsh.hamming_pairwise` takes them.
+    """
+    dense = features.dense
+    proj = prng.normal(prng.fold_in(prng.key(seed), 0xBEEF),
+                       (dense.shape[-1], bits), device=dense.device)
+    words = kernel_ops.simhash_packed(dense.contiguous(), proj)
+    return words.to(torch.int64) & 0xFFFFFFFF
+
+
+def _score_tile(features: PointFeatures, a_gid: torch.Tensor,
+                b_gid: torch.Tensor, measure_name: str) -> torch.Tensor:
+    """Similarity tiles between gathered id tiles a_gid (nw, A) and
+    b_gid (nw, B) -> (nw, A, B) float32, through ``leader_score``."""
+    if measure_name not in ("cosine", "dot"):
+        raise NotImplementedError(f"measure={measure_name!r} {_LATER}")
+    fa = masked_take(features, a_gid).dense.contiguous()
+    fb = masked_take(features, b_gid).dense.contiguous()
+    ok_a = torch.ones(fa.shape[:-1], dtype=torch.bool, device=fa.device)
+    ok_b = torch.ones(fb.shape[:-1], dtype=torch.bool, device=fb.device)
+    return kernel_ops.leader_score(fa, fb, ok_a, ok_b,
+                                   normalized=measure_name == "cosine")
+
+
+def _emit(mask: torch.Tensor, sims: torch.Tensor,
+          r1: Optional[float]) -> torch.Tensor:
+    if r1 is None:
+        return mask
+    return mask & (sims > torch.tensor(r1, dtype=torch.float32,
+                                       device=sims.device))
+
+
+def _rep_lsh_stars(cfg: StarsConfig, features: PointFeatures,
+                   prefilter: Optional[torch.Tensor],
+                   win: win_lib.Windows):
+    """Stars 1 scoring: every member compares to its bucket's leader only.
+
+    The sort tiebreak is a fresh random priority, so the first slot of
+    every bucket run in a window is a uniformly random leader; a window's
+    first slot starts a new run (the random sub-bucket split at the cap).
+    O(n) comparisons per repetition, scored as (nw * W, 1, 1) tiles.
+    """
+    nw, w_sz = win.gid.shape
+    dev = win.gid.device
+    is_head = torch.ones_like(win.valid)
+    is_head[:, 1:] = win.bucket[:, 1:] != win.bucket[:, :-1]
+    slot = torch.arange(w_sz, dtype=torch.int64, device=dev).expand(nw, w_sz)
+    head_slot = torch.cummax(
+        torch.where(is_head, slot, torch.zeros_like(slot)), dim=1).values
+    head_gid = win.gid.gather(1, head_slot)
+    # an invalid head disables its whole run, as in the JAX package
+    mask = win.valid & win.valid.gather(1, head_slot) & (head_slot != slot)
+    pref_ops = torch.zeros((nw,), dtype=torch.int32, device=dev)
+    if prefilter is not None:
+        pref_ops = mask.sum(1, dtype=torch.int32)
+        ham = lsh_lib.hamming_pairwise(
+            prefilter[head_gid.clamp_min(0)][..., None, :],
+            prefilter[win.gid.clamp_min(0)][..., None, :])[..., 0, 0]
+        mask &= ham <= cfg.hamming_prefilter_max
+    sims = _score_tile(features, head_gid.reshape(-1, 1),
+                       win.gid.reshape(-1, 1), cfg.measure)
+    sims = sims.reshape(nw, w_sz)
+    emit = _emit(mask, sims, cfg.r1)
+    return dict(src=head_gid.reshape(-1), dst=win.gid.reshape(-1),
+                w=sims.reshape(-1), emit=emit.reshape(-1),
+                emitted=emit.sum(1, dtype=torch.int32),
+                comparisons=mask.sum(1, dtype=torch.int32),
+                prefilter_ops=pref_ops,
+                scored_windows=_scored_rows(nw, 0, None))
+
+
 def _rep_window_grid(cfg: StarsConfig, bits: torch.Tensor,
                      k_tie: prng.Key, k_shift: prng.Key) -> win_lib.Windows:
     """One repetition's window grid from its (n, M) sketch bits."""
-    if cfg.mode == "lsh":
-        raise NotImplementedError(f"mode='lsh' (LSH-Stars) {_LATER}")
-    if cfg.mode != "sorting":
-        raise ValueError(f"unknown mode {cfg.mode!r}")
     n = bits.shape[0]
     # only the top TIEBREAK_BITS of the draw, as in the JAX package
     tiebreak = prng.bits(k_tie, (n,), device=bits.device) \
         & (((1 << TIEBREAK_BITS) - 1) << (32 - TIEBREAK_BITS))
-    return win_lib.sorting_lsh_windows(
-        bits, window=cfg.window, shift_key=k_shift, tiebreak=tiebreak,
-        tiebreak_bits=TIEBREAK_BITS)
+    if cfg.mode == "lsh":
+        return win_lib.lsh_windows(
+            lsh_lib.bucket_key(bits, cfg.family), window=cfg.window,
+            tiebreak=tiebreak, tiebreak_bits=TIEBREAK_BITS)
+    if cfg.mode == "sorting":
+        return win_lib.sorting_lsh_windows(
+            bits, window=cfg.window, shift_key=k_shift, tiebreak=tiebreak,
+            tiebreak_bits=TIEBREAK_BITS)
+    raise ValueError(f"unknown mode {cfg.mode!r}")
 
 
 def _rep_candidates(cfg: StarsConfig, features: PointFeatures,
-                    rep_index: int):
+                    prefilter: Optional[torch.Tensor], rep_index: int):
     """One repetition: sketch, window, score; returns the candidate stream.
 
     A dict of the flat 'src', 'dst', 'w' stream and its 'emit' mask, and
-    per-window int32 'comparisons' / 'emitted' counts (summed on the host
-    as int64).
+    per-window int32 'comparisons' / 'emitted' / 'prefilter_ops' counts
+    (summed on the host as int64).  ``prefilter`` is the packed sketch of
+    :func:`_prefilter_sketch` when the config has the prefilter on.
     """
     rep_seed = (rep_index & 0xFFFFFFFF) ^ (cfg.seed & 0xFFFFFFFF)
     k_tie, k_shift, k_lead, _ = _rep_keys(cfg, rep_index)
     bits = lsh_lib.sketch(features, cfg.family, rep_seed=rep_seed)
     win = _rep_window_grid(cfg, bits, k_tie, k_shift)
-    return _score_windows(cfg, features, win, k_lead)
+    return _score_windows(cfg, features, prefilter, win, k_lead)
 
 
 def _score_windows(cfg: StarsConfig, features: PointFeatures,
+                   prefilter: Optional[torch.Tensor],
                    win: win_lib.Windows, k_lead: prng.Key):
     """Score one repetition's windows into a masked candidate stream.
 
-    The fused branch of the JAX package's ``_score_windows``: gather the
-    leader and member rows once, then one ``window_score`` call gives the
-    similarities, the emit mask and the per-window counters.
+    LSH-Stars goes to :func:`_rep_lsh_stars`.  Otherwise, without the
+    prefilter, the fused branch of the JAX package: gather the leader and
+    member rows once, then one ``window_score`` call gives the
+    similarities, the emit mask and the per-window counters.  With the
+    prefilter, the JAX package's chunked branch over the whole repetition:
+    the mask chain here, the Hamming cut, then ``leader_score`` tiles.
     """
-    nw, w_sz = win.gid.shape
-    dev = win.gid.device
-    if cfg.mode == "lsh":
-        raise NotImplementedError(f"mode='lsh' (LSH-Stars) {_LATER}")
-    if cfg.hamming_prefilter_bits > 0:
-        raise NotImplementedError(f"the Hamming prefilter {_LATER}")
     if cfg.measure not in ("cosine", "dot"):
         raise NotImplementedError(f"measure={cfg.measure!r} {_LATER}")
+    if cfg.mode == "lsh" and cfg.scoring == "stars":
+        return _rep_lsh_stars(cfg, features, prefilter, win)
+    nw, w_sz = win.gid.shape
+    dev = win.gid.device
     if cfg.scoring == "stars":
         leader_slot, leader_ok = win_lib.sample_leaders(
             win, s=cfg.leaders, key=k_lead)
@@ -179,19 +270,39 @@ def _score_windows(cfg: StarsConfig, features: PointFeatures,
     slot64 = leader_slot.long()
     lead_gid = win.gid.gather(1, slot64)
     lead_bucket = win.bucket.gather(1, slot64)
-    lead = masked_take(features, lead_gid).dense
-    memb = masked_take(features, win.gid).dense
-    keep_win = torch.ones((nw,), dtype=torch.bool, device=dev)
-    sims, emit, comparisons, emitted = kernel_ops.window_score(
-        lead.contiguous(), memb.contiguous(), leader_slot.contiguous(),
-        lead_gid, win.gid, leader_ok.contiguous(), win.valid, lead_bucket,
-        win.bucket, keep_win, normalized=cfg.measure == "cosine",
-        allpairs=cfg.scoring == "allpairs", match_bucket=False, r1=cfg.r1)
+    if prefilter is None:
+        lead = masked_take(features, lead_gid).dense
+        memb = masked_take(features, win.gid).dense
+        keep_win = torch.ones((nw,), dtype=torch.bool, device=dev)
+        sims, emit, comparisons, emitted = kernel_ops.window_score(
+            lead.contiguous(), memb.contiguous(), leader_slot.contiguous(),
+            lead_gid, win.gid, leader_ok.contiguous(), win.valid,
+            lead_bucket, win.bucket, keep_win,
+            normalized=cfg.measure == "cosine",
+            allpairs=cfg.scoring == "allpairs",
+            match_bucket=cfg.mode == "lsh", r1=cfg.r1)
+        pref_ops = torch.zeros((nw,), dtype=torch.int32, device=dev)
+    else:
+        members = torch.arange(w_sz, dtype=torch.int32, device=dev)
+        lslot = leader_slot[:, :, None]
+        mask = leader_ok[:, :, None] & win.valid[:, None, :]
+        mask = mask & (lslot != members)          # self slot
+        if cfg.scoring == "allpairs":
+            mask &= lslot < members               # each unordered pair once
+        if cfg.mode == "lsh":
+            mask &= lead_bucket[:, :, None] == win.bucket[:, None, :]
+        pref_ops = mask.sum((1, 2), dtype=torch.int32)
+        ham = lsh_lib.hamming_pairwise(prefilter[lead_gid.clamp_min(0)],
+                                       prefilter[win.gid.clamp_min(0)])
+        mask &= ham <= cfg.hamming_prefilter_max
+        sims = _score_tile(features, lead_gid, win.gid, cfg.measure)
+        emit = _emit(mask, sims, cfg.r1)
+        comparisons = mask.sum((1, 2), dtype=torch.int32)
+        emitted = emit.sum((1, 2), dtype=torch.int32)
     src = lead_gid[:, :, None].expand(sims.shape)
     dst = win.gid[:, None, :].expand(sims.shape)
     return dict(src=src.reshape(-1), dst=dst.reshape(-1),
                 w=sims.reshape(-1), emit=emit.reshape(-1),
                 emitted=emitted, comparisons=comparisons,
-                prefilter_ops=torch.zeros((nw,), dtype=torch.int32,
-                                          device=dev),
+                prefilter_ops=pref_ops,
                 scored_windows=_scored_rows(nw, 0, None))

@@ -1,20 +1,20 @@
-"""Sort-and-window machinery (``repro.core.windows``), SortingLSH mode.
+"""Sort-and-window machinery (``repro.core.windows``).
 
-Points sort lexicographically by their M SimHash bits with a random
-tiebreak, then a random shift r ~ [W/2, W] offsets the window boundaries
-(the Stars 2 listing).  Windows are fixed (n_windows, W) slot grids with a
-validity mask, exactly as in the JAX package.
+SortingLSH mode (Stars 2): points sort lexicographically by their M
+SimHash bits with a random tiebreak, then a random shift r ~ [W/2, W]
+offsets the window boundaries.  LSH mode (Stars 1): points sort by their
+folded bucket id with a random tiebreak, so buckets become contiguous
+runs cut into windows of at most W.  Windows are fixed (n_windows, W)
+slot grids with a validity mask, exactly as in the JAX package.
 
 Two traps of the JAX program have no direct torch counterpart:
 
-  * ``lax.sort`` over M + 2 operands: SimHash words are single bits, so
-    the M bits (most significant first) and the 20-bit tiebreak pack into
-    one int64 key, and a stable sort over ascending gids resolves the
-    remaining ties by gid, as the JAX sort's last operand does.
+  * ``lax.sort`` over several operands: the sort keys (the M sketch bits,
+    most significant first, or the 32-bit bucket id) and the 20-bit
+    tiebreak pack into one int64 key, and a stable sort over ascending
+    gids resolves the remaining ties by gid, as the JAX sort does.
   * ``lax.top_k`` keeps the lower index on a tie and ``torch.topk`` does
     not; a stable descending sort does.
-
-LSH mode (``lsh_windows``) comes with LSH-Stars in a later slice.
 """
 
 from __future__ import annotations
@@ -122,6 +122,26 @@ def sorting_lsh_windows(bits: torch.Tensor, *, window: int,
     perm_gid = torch.sort(key, stable=True).indices.to(torch.int32)
     offset, n_slots = window_layout("sorting", n, window, shift_key)
     return _scatter_to_slots(perm_gid, torch.zeros_like(perm_gid), offset,
+                             n_slots, window)
+
+
+def lsh_windows(bucket_id: torch.Tensor, *, window: int,
+                tiebreak: torch.Tensor, tiebreak_bits: int) -> Windows:
+    """Stars 1 bucketing: sort by (bucket id, random tiebreak), window.
+
+    Args:
+      bucket_id: (n,) int64 uint32 folded sketches (``lsh.bucket_key``).
+      window:    the bucket-size cap W.
+      tiebreak:  (n,) int64 uint32 random priorities; only the top
+                 ``tiebreak_bits`` may be set (``stars._rep_window_grid``).
+    """
+    n = bucket_id.shape[0]
+    key = (bucket_id << tiebreak_bits) | (tiebreak >> (32 - tiebreak_bits))
+    perm = torch.sort(key, stable=True).indices
+    b = bucket_id[perm]
+    perm_bucket = torch.where(b >= 2**31, b - 2**32, b).to(torch.int32)
+    offset, n_slots = window_layout("lsh", n, window)
+    return _scatter_to_slots(perm.to(torch.int32), perm_bucket, offset,
                              n_slots, window)
 
 

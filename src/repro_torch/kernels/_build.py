@@ -2,10 +2,12 @@
 
 Every ``csrc/<name>.cu`` has a plain C interface and compiles on its own,
 with ``nvcc`` for ``sm_90a``, into ``build/repro_torch/lib<name>.so`` at
-the root of the checkout.  A library is rebuilt when it is missing or
-older than its source.  Nothing is built when the package is imported:
-the first launch builds what it needs, and :func:`build` builds several
-sources at once, one ``nvcc`` process each, all started together.
+the root of the checkout; the shared ``csrc/*.cuh`` headers are included
+by the sources that need them.  A library is rebuilt when it is missing
+or older than its source or any header.  Nothing is built when the
+package is imported: the first launch builds what it needs, and
+:func:`build` builds several sources at once, one ``nvcc`` process each,
+all started together.
 """
 
 from __future__ import annotations
@@ -51,8 +53,10 @@ def nvcc() -> str:
 
 def _stale(name: str) -> bool:
     lib = library_path(name)
-    return (not lib.exists()
-            or lib.stat().st_mtime < sources()[name].stat().st_mtime)
+    if not lib.exists():
+        return True
+    inputs = [sources()[name], *CSRC.glob("*.cuh")]
+    return lib.stat().st_mtime < max(p.stat().st_mtime for p in inputs)
 
 
 def build(names: Optional[Iterable[str]] = None, *,

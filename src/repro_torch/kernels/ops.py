@@ -12,7 +12,9 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import leader_score as _ls
 from repro_torch.kernels import ref
+from repro_torch.kernels import simhash as _sh
 from repro_torch.kernels import topk_merge as _tm
 from repro_torch.kernels import window_score as _ws
 
@@ -23,6 +25,19 @@ def _on_cuda(t: torch.Tensor) -> bool:
     if t.device.type == "cpu":
         return False
     raise ValueError(f"no kernel or plain version for device {t.device}")
+
+
+def simhash_packed(x, proj):
+    """Packed SimHash words; see ``ref.simhash_packed_ref``."""
+    fn = _sh.simhash_packed if _on_cuda(x) else ref.simhash_packed_ref
+    return fn(x, proj)
+
+
+def leader_score(leaders, members, leader_ok, member_ok, *,
+                 normalized: bool = True):
+    """Masked similarity tiles; see ``ref.leader_score_ref``."""
+    fn = _ls.leader_score if _on_cuda(leaders) else ref.leader_score_ref
+    return fn(leaders, members, leader_ok, member_ok, normalized=normalized)
 
 
 def window_score(leaders, members, leader_slot, lead_gid, gid, leader_ok,

@@ -14,6 +14,23 @@ import torch
 _BIG = 2**31 - 1
 
 
+def simhash_packed_ref(x: torch.Tensor, proj: torch.Tensor) -> torch.Tensor:
+    """sign(x @ proj) bits packed little-endian, 32 to a word.
+
+    x: (n, d); proj: (d, m) -> (n, ceil(m/32)) int32 words holding the
+    uint32 bit patterns; the tail bits of the last word are zero.  The
+    product runs in float64, as ``core.lsh.simhash_bits`` does, so the
+    sign does not depend on summation order.
+    """
+    bits = (x.double() @ proj.double()) > 0
+    n, m = bits.shape
+    n_words = (m + 31) // 32
+    bits = torch.nn.functional.pad(bits, (0, n_words * 32 - m))
+    shifts = torch.arange(32, dtype=torch.int64, device=x.device)
+    words = (bits.reshape(n, n_words, 32).to(torch.int64) << shifts).sum(-1)
+    return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+
+
 def leader_score_ref(leaders: torch.Tensor, members: torch.Tensor,
                      leader_ok: torch.Tensor, member_ok: torch.Tensor, *,
                      normalized: bool = True) -> torch.Tensor:

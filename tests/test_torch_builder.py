@@ -107,7 +107,7 @@ def test_stars_config_mirrors_jax_fields_and_defaults():
 
 
 @pytest.mark.parametrize("change", [
-    dict(mode="lsh"), dict(hamming_prefilter_bits=64),
+    dict(family=HashFamilyConfig("wminhash")), dict(pair_cache_slots=8),
     dict(measure="jaccard"), dict(source="allpairs"),
     dict(feature_store="paged"), dict(refresh_rate=0.5),
     dict(family=HashFamilyConfig("minhash"))])

@@ -18,8 +18,10 @@ import repro.core  # noqa: F401  (imports repro's modules in a working order)
 from repro.kernels import ref as j_ref
 from repro.kernels.topk_merge import topk_merge as pallas_topk_merge
 from repro.kernels.window_score import window_score as pallas_window_score
+from repro_torch.kernels import leader_score as t_ls
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as t_ref
+from repro_torch.kernels import simhash as t_sh
 from repro_torch.kernels import topk_merge as t_tm
 from repro_torch.kernels import window_score as t_ws
 
@@ -145,9 +147,17 @@ def test_f32_sort_key_orders_like_floats():
     assert key[-1] > key[-2]                # NaN after +inf
 
 
+def _leader_simhash_args(seed):
+    args = _torch_args(_window_inputs(2, 4, 8, 16, seed=seed))
+    rs = np.random.RandomState(seed)
+    sim = (torch.from_numpy(rs.randn(9, 16).astype(np.float32)),
+           torch.from_numpy(rs.randn(16, 40).astype(np.float32)))
+    return (args[0], args[1], args[5], args[6]), sim
+
+
 def test_cpu_tensors_dispatch_to_plain_versions():
     args = _torch_args(_window_inputs(2, 4, 8, 16, seed=0))
-    before = (t_ws.launches, t_tm.launches)
+    before = (t_ws.launches, t_tm.launches, t_ls.launches, t_sh.launches)
     got = ops.window_score(*args, r1=0.1)
     want = t_ref.window_score_ref(*args, r1=0.1)
     for g, w in zip(got, want):
@@ -157,7 +167,15 @@ def test_cpu_tensors_dispatch_to_plain_versions():
                                            *_slab_rows(rs, 6, 4, 9))]
     for g, w in zip(ops.topk_merge(*slabs), t_ref.topk_merge_ref(*slabs)):
         assert torch.equal(g, w)
-    assert (t_ws.launches, t_tm.launches) == before
+    lead, sim = _leader_simhash_args(0)
+    for normalized in (True, False):
+        assert torch.equal(
+            ops.leader_score(*lead, normalized=normalized),
+            t_ref.leader_score_ref(*lead, normalized=normalized))
+    assert torch.equal(ops.simhash_packed(*sim),
+                       t_ref.simhash_packed_ref(*sim))
+    assert (t_ws.launches, t_tm.launches, t_ls.launches,
+            t_sh.launches) == before
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -169,3 +187,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                                            *_slab_rows(rs, 2, 3, 5))]
     with pytest.raises(ValueError, match="CUDA"):
         t_tm.topk_merge(*slabs)
+    lead, sim = _leader_simhash_args(1)
+    with pytest.raises(ValueError, match="CUDA"):
+        t_ls.leader_score(*lead)
+    with pytest.raises(ValueError, match="CUDA"):
+        t_sh.simhash_packed(*sim)

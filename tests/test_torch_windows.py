@@ -5,8 +5,6 @@ words, the sorted window grid (gid, valid, bucket) and the leader slots.
 Inputs are made with numpy from a seed and handed to both packages.
 """
 
-import dataclasses
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -32,18 +30,20 @@ def _points(n, d, seed):
     return x.astype(np.float32)
 
 
-def _cfgs(m, window, leaders, seed):
-    jc = j_stars.StarsConfig(family=j_lsh.HashFamilyConfig("simhash", m=m),
+def _cfgs(m, window, leaders, seed, mode="sorting"):
+    jc = j_stars.StarsConfig(mode=mode,
+                             family=j_lsh.HashFamilyConfig("simhash", m=m),
                              window=window, leaders=leaders, seed=seed)
-    tc = t_stars.StarsConfig(family=t_lsh.HashFamilyConfig("simhash", m=m),
+    tc = t_stars.StarsConfig(mode=mode,
+                             family=t_lsh.HashFamilyConfig("simhash", m=m),
                              window=window, leaders=leaders, seed=seed)
     return jc, tc
 
 
-def _rep(n, d, m, window, leaders, seed, rep):
+def _rep(n, d, m, window, leaders, seed, rep, mode="sorting"):
     """One repetition's sketch, grid and leaders in both packages."""
     x = _points(n, d, seed)
-    jc, tc = _cfgs(m, window, leaders, seed)
+    jc, tc = _cfgs(m, window, leaders, seed, mode)
     rep_seed = rep ^ seed
     j_words = j_lsh.sketch(JFeatures(dense=jnp.asarray(x)), jc.family,
                            rep_seed=rep_seed)
@@ -113,12 +113,19 @@ def test_sort_key_needs_63_bits():
         t_win.sort_key(bits, torch.zeros(4, dtype=torch.int64), 20)
 
 
-def test_lsh_mode_is_not_ported_yet():
-    _, tc = _cfgs(16, 8, 2, 0)
-    tc = dataclasses.replace(tc, mode="lsh")
-    with pytest.raises(NotImplementedError, match="LSH-Stars"):
-        t_stars._rep_window_grid(tc, torch.zeros((8, 16), dtype=torch.bool),
-                                 (0, 1), (0, 2))
+@pytest.mark.parametrize("n,m,window", [(1000, 8, 64), (777, 12, 100)])
+def test_lsh_mode_grid_bit_equal(n, m, window):
+    """LSH mode end to end from the points: sketch, bucket ids, sort and
+    windows.  Eight clusters at M = 8 give buckets larger than W, so
+    buckets split across windows; the last window holds pad slots."""
+    (_, jg, _), (_, tg, _) = _rep(n, 16, m, window, 4, 3, 2, mode="lsh")
+    np.testing.assert_array_equal(tg.gid.numpy(), np.asarray(jg.gid))
+    np.testing.assert_array_equal(tg.valid.numpy(), np.asarray(jg.valid))
+    np.testing.assert_array_equal(tg.bucket.numpy(),
+                                  np.asarray(jg.bucket).view(np.int32))
+    assert not tg.valid.all()
+    b, v = tg.bucket, tg.valid
+    assert ((b[:-1, -1] == b[1:, 0]) & v[:-1, -1] & v[1:, 0]).any()
 
 
 @pytest.mark.parametrize("row_offset,stride,total_rows", [
