@@ -20,8 +20,16 @@ Phases, one JSON line each; any failed check exits non-zero:
   5. e2e_lsh: LSH-Stars (Stars 1) on the same points: SimHash M = 16,
               bucket cap W = 10,000, r = 25.
   6. e2e_prefilter: the default SortingLSH build with the 64-bit Hamming
-              prefilter (max distance 24), on the same points.
-  7. parity:  the default, LSH-Stars, LSH all-pairs and prefilter builds
+              prefilter (max distance 24), on the first 2**18 points.
+  7. lm_embed: gemma3-1b at full width and depth (random weights from a
+              seeded torch.Generator) embeds 4,096 sequences of 2,048
+              tokens with embed_corpus, then the default Stars build over
+              the embeddings and affinity clustering; one block profiled.
+  8. lm_generate: generate (greedy) for 8 prompts of 128 tokens on the
+              same model, and the decode steps' logits against forward's.
+  9. lm_parity: gemma3's reduced config in fp32 on CUDA and on the CPU:
+              forward, embed_corpus and greedy generate agree.
+ 10. parity:  the default, LSH-Stars, LSH all-pairs and prefilter builds
               at n = 20,000 on CUDA and on the CPU (plain versions);
               comparisons equal, edge sets equal up to reported
               slab-boundary near-ties.
@@ -46,6 +54,9 @@ FP32_FLOP_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
 FP64_FLOP_PER_S = 67e12         # H100 SXM fp64 on the tensor cores (DMMA)
 SEED = 0
 N_E2E, D_E2E = 1 << 20, 128
+# the prefilter build runs on the first 2**18 of the e2e points, so that
+# the whole script keeps within its time limit
+N_PREFILTER = 1 << 18
 
 
 def emit(obj) -> None:
@@ -181,11 +192,13 @@ def check_window_score(torch, args, variant) -> float:
 
 
 # Other (nw, s, W, d): the tests' shapes, s > 32 (several leader tiles, as
-# all-pairs scoring gives), d not a multiple of 4, and the LSH all-pairs
-# parity build's W = 1,000 windows
+# all-pairs scoring gives), d not a multiple of 4, the LSH all-pairs
+# parity build's W = 1,000 windows, and rows wider than one staged chunk
+# of 512 (the LM path's embeddings, d = 1,152; and d = 1,030)
 WINDOW_SCORE_SWEEP = [(1, 4, 8, 16), (5, 8, 24, 16), (3, 25, 250, 64),
                       (2, 1, 16, 8), (6, 250, 250, 128), (4, 40, 100, 7),
-                      (2, 33, 65, 33), (20, 1000, 1000, 128)]
+                      (2, 33, 65, 33), (20, 1000, 1000, 128),
+                      (3, 25, 250, 1152), (2, 40, 70, 1030)]
 
 
 def phase_window_score(torch) -> dict:
@@ -317,12 +330,13 @@ def check_leader_score(torch, args, normalized) -> float:
 # (nw, s, W, d): the tests' shapes, the 1 x 1 tiles of LSH-Stars, s > 32
 # (several leader tiles) and d not a multiple of 4, for each of the
 # kernel's designs (tile where s * W >= 256, else rows), with tiles on
-# either side of 256
+# either side of 256, and rows wider than one staged chunk of 512
 LEADER_SCORE_SWEEP = [(1, 4, 8, 16), (5, 8, 24, 16), (3, 25, 250, 64),
                       (2, 1, 16, 8), (1000, 1, 1, 16), (6, 40, 100, 128),
                       (4, 33, 65, 7), (7, 3, 5, 33), (3, 1, 1, 5),
                       (3, 16, 16, 9), (3, 15, 17, 9), (2, 40, 6, 33),
-                      (2, 1, 256, 16)]
+                      (2, 1, 256, 16), (3, 25, 250, 1152), (2, 40, 70, 1030),
+                      (2, 1, 16, 1152)]
 
 
 def phase_leader_score(torch) -> dict:
@@ -427,6 +441,122 @@ def phase_simhash(torch) -> dict:
     return row
 
 
+# (b, hq, hkv, sq, sk, d): the shapes of tests/test_kernels.py, head dim
+# 256 with a GQA group of 4, and ragged edges: rows and keys not a
+# multiple of the kernel's 64-row blocks, head dims 8, 100 and 512
+FLASH_SWEEP = [(1, 2, 2, 32, 32, 16), (2, 4, 2, 64, 64, 32),
+               (2, 8, 1, 32, 32, 64), (1, 4, 4, 32, 128, 16),
+               (1, 4, 1, 256, 256, 256), (2, 2, 1, 100, 130, 8),
+               (1, 3, 3, 70, 70, 100), (1, 2, 1, 96, 96, 512)]
+# The sweep runs causal without a window; these (shape, causal, window)
+# cases add the windows of tests/test_kernels.py on (2, 4, 2, 64, 64,
+# 32), window 512 at head dim 256, a window not a multiple of the block,
+# and shapes without the causal mask
+FLASH_EXTRA = [((2, 4, 2, 64, 64, 32), True, 8),
+               ((2, 4, 2, 64, 64, 32), True, 16),
+               ((2, 4, 2, 64, 64, 32), True, 64),
+               ((1, 4, 1, 1024, 1024, 256), True, 512),
+               ((1, 4, 1, 130, 130, 256), True, 40),
+               ((2, 4, 2, 64, 64, 32), False, None),
+               ((1, 4, 1, 130, 200, 64), False, 50)]
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+BF16_FLOP_PER_S = 989e12        # H100 SXM bf16 dense on the tensor cores
+
+
+def visible_pairs(sq, sk, causal, window) -> int:
+    """(query, key) pairs that the masks leave visible, per head."""
+    import numpy as np
+    pos = np.arange(sq, dtype=np.int64) + (sk - sq)
+    hi = np.minimum(pos, sk - 1) if causal else np.full(sq, sk - 1)
+    lo = np.maximum(pos - window + 1, 0) if window is not None \
+        else np.zeros(sq, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def flash_inputs(torch, gen, shape, dtype):
+    b, hq, hkv, sq, sk, d = shape
+    randn = lambda s: torch.randn(s, generator=gen, device="cuda").to(dtype)
+    return randn((b, hq, sq, d)), randn((b, hkv, sk, d)), \
+        randn((b, hkv, sk, d))
+
+
+def check_flash(torch, args, causal, window) -> float:
+    """Hold the kernel against its plain version within FLASH_TOL; returns
+    the largest difference."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    q, k, v = args
+    what = (f"flash_attention {tuple(q.shape)} x {tuple(k.shape)} {q.dtype} "
+            f"causal={causal} window={window}")
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.mha_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    check(got.dtype == q.dtype and got.shape == q.shape, f"{what}: shape")
+    check(bool(torch.isfinite(want).all()), f"{what}: plain version not finite")
+    err = (got.float() - want.float()).abs().max().item()
+    check(err <= FLASH_TOL[str(q.dtype).split(".")[-1]],
+          f"{what}: differs by {err}")
+    return err
+
+
+# The LM path's two calls: gemma3-1b (hq 4, hkv 1, head dim 256) on a
+# block of 64 sequences of 2,048 tokens, in its 4 global and 22 local
+# (window 512) layers
+FLASH_PATH = (64, 4, 1, 2048, 2048, 256)
+
+
+def phase_flash_attention(torch) -> dict:
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    cases = [(shape, True, None) for shape in FLASH_SWEEP] + FLASH_EXTRA
+    for dtype in (torch.float32, torch.bfloat16):
+        errs = [check_flash(torch, flash_inputs(torch, gen, shape, dtype),
+                            causal, window)
+                for shape, causal, window in cases]
+        emit({"phase": "kernels", "kernel": "flash_attention",
+              "dtype": str(dtype), "cases": len(cases),
+              "max_abs_err": max(errs)})
+    b, hq, hkv, sq, sk, d = FLASH_PATH
+    q, k, v = flash_inputs(torch, gen, FLASH_PATH, torch.bfloat16)
+    shapes = []
+    for label, window in (("global", None), ("local", 512)):
+        err = check_flash(torch, (q, k, v), True, window)
+        ms = cuda_ms(torch, lambda: fa.flash_attention(
+            q, k, v, causal=True, window=window), 5)
+        plain_ms = cuda_ms(torch, lambda: ref.mha_ref(
+            q, k, v, causal=True, window=window), 2)
+        if window is None:
+            library_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True), 5)
+        else:
+            pos = torch.arange(sq, device="cuda")
+            band = (pos[None, :] <= pos[:, None]) \
+                & (pos[None, :] > pos[:, None] - window)
+            library_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=band, enable_gqa=True), 5)
+        pairs = visible_pairs(sq, sk, True, window)
+        moved = 2 * nbytes(q) + nbytes(k, v)
+        row = {"at": label, "shape": list(FLASH_PATH), "window": window,
+               "dtype": "bfloat16", "max_abs_err": err, "ms": ms,
+               "plain_ms": plain_ms, "library_ms": library_ms,
+               "library": "torch.nn.functional.scaled_dot_product_attention",
+               "visible_pairs_per_head": pairs,
+               **bound(moved, 4.0 * d * pairs * b * hq, BF16_FLOP_PER_S)}
+        emit({"phase": "kernels", "kernel": "flash_attention", **row})
+        shapes.append(row)
+        torch.cuda.empty_cache()
+    local = shapes[1]
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:93",
+            "max_abs_err": max(r["max_abs_err"] for r in shapes),
+            **{k: local[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms")},
+            "shapes": shapes}
+
+
 def clustered_points(torch, n, d, classes, spread, seed, device):
     gen = torch.Generator(device=device).manual_seed(seed)
     centers = torch.randn((classes, d), generator=gen, device=device)
@@ -437,10 +567,20 @@ def clustered_points(torch, n, d, classes, spread, seed, device):
 
 
 def kernel_modules():
-    from repro_torch.kernels import leader_score, simhash, topk_merge
-    from repro_torch.kernels import window_score
+    from repro_torch.kernels import flash_attention, leader_score, simhash
+    from repro_torch.kernels import topk_merge, window_score
     return {"window_score": window_score, "topk_merge": topk_merge,
-            "leader_score": leader_score, "simhash_packed": simhash}
+            "leader_score": leader_score, "simhash_packed": simhash,
+            "flash_attention": flash_attention}
+
+
+def reset_launches() -> None:
+    for mod in kernel_modules().values():
+        mod.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: mod.launches for name, mod in kernel_modules().items()}
 
 
 def exact_neighbours(torch, x, queries, k=10):
@@ -461,11 +601,9 @@ def run_build(torch, phase, x, cfg, need, extra=None):
     from repro_torch import GraphBuilder
     from repro_torch.graph.metrics import neighbor_recall
     n, d = x.shape
-    mods = kernel_modules()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for mod in mods.values():
-        mod.launches = 0
+    reset_launches()
     builder = GraphBuilder(x, cfg)
     rep_s = []
     t0 = time.perf_counter()
@@ -475,7 +613,7 @@ def run_build(torch, phase, x, cfg, need, extra=None):
         torch.cuda.synchronize()
         rep_s.append(time.perf_counter() - t)
     reps_s = time.perf_counter() - t0
-    launches = {name: mod.launches for name, mod in mods.items()}
+    launches = read_launches()
     for name, ok in need.items():
         check(ok(launches[name]),
               f"{phase}: {name} launched {launches[name]} times: {launches}")
@@ -549,9 +687,10 @@ def phase_e2e_lsh(torch, x) -> dict:
 
 
 def phase_e2e_prefilter(torch, x) -> dict:
+    """The prefilter build on the first N_PREFILTER of the points."""
     from repro_torch import StarsConfig
     launches, builder = run_build(
-        torch, "e2e_prefilter", x, StarsConfig(**PREFILTER),
+        torch, "e2e_prefilter", x[:N_PREFILTER], StarsConfig(**PREFILTER),
         {"simhash_packed": lambda c: c == 1,
          "leader_score": lambda c: c > 0, "topk_merge": lambda c: c > 0})
     phase_profile(torch, "e2e_prefilter", builder)
@@ -561,16 +700,22 @@ def phase_e2e_prefilter(torch, x) -> dict:
 
 
 def phase_profile(torch, path, builder) -> None:
-    """One more repetition of ``path`` under torch.profiler: the device's busy and
-    idle share of its wall time (profiler on) and device time by kernel
-    and by the PyTorch operator that launched it."""
+    """One more repetition of ``path`` under torch.profiler."""
+    profile_call(torch, path, lambda: builder.add_reps(1))
+
+
+def profile_call(torch, path, fn, groups=None) -> dict:
+    """Run ``fn`` once under torch.profiler: the device's busy and idle
+    share of its wall time (profiler on) and device time by kernel and by
+    the PyTorch operator that launched it; ``groups`` maps a group name to
+    kernel-name substrings, and kernels in no group sum to "rest"."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        builder.add_reps(1)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
     events = prof.key_averages()
@@ -585,12 +730,190 @@ def phase_profile(torch, path, builder) -> None:
            if e.device_type == DeviceType.CPU
            and e.self_device_time_total > 0}
     busy_ms = sum(kernels.values())
+    by_group = {}
+    for name, ms in kernels.items():
+        group = next((g for g, keys in (groups or {}).items()
+                      if any(k in name for k in keys)), "rest")
+        by_group[group] = by_group.get(group, 0.0) + ms
     top = lambda d: dict(sorted(d.items(), key=lambda kv: -kv[1])[:12])
-    emit({"phase": "profile", "path": path, "wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
-          "device_idle_share": 1.0 - busy_ms / (wall * 1e3),
-          "kernel_launches": sum(e.count for e in events
-                                 if e.device_type == DeviceType.CUDA),
-          "top_kernels_ms": top(kernels), "top_ops_ms": top(ops)})
+    row = {"phase": "profile", "path": path, "wall_ms": wall * 1e3,
+           "device_busy_ms": busy_ms,
+           "device_idle_share": 1.0 - busy_ms / (wall * 1e3),
+           "kernel_launches": sum(e.count for e in events
+                                  if e.device_type == DeviceType.CUDA),
+           "device_ms_by_group": by_group,
+           "top_kernels_ms": top(kernels), "top_ops_ms": top(ops)}
+    emit(row)
+    return row
+
+
+# The LM path: gemma3-1b at full width and depth (26 layers, d 1152, 4 / 1
+# heads, head dim 256, vocab 262,144, bf16), random weights from
+# torch.Generator(SEED), embedding a corpus of LM_DOCS sequences of LM_SEQ
+# tokens in blocks of LM_BLOCK, as examples/embed_and_cluster.py makes
+# its corpus: LM_CLASSES topics, 80 % of tokens from the topic's own slice
+# of 16 tokens
+LM_DOCS, LM_SEQ, LM_BLOCK, LM_CLASSES = 4096, 2048, 64, 64
+MATMUL_KERNELS = ("gemm", "nvjet", "xmma", "cutlass", "cublas")
+
+
+def lm_corpus(torch, n, seq, classes, vocab, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    labels = torch.randint(0, classes, (n,), generator=gen, device="cuda")
+    slice_sz = 16
+    topical = labels[:, None] * slice_sz + torch.randint(
+        0, slice_sz, (n, seq), generator=gen, device="cuda")
+    background = classes * slice_sz + torch.randint(
+        0, vocab - classes * slice_sz, (n, seq), generator=gen,
+        device="cuda")
+    coin = torch.rand((n, seq), generator=gen, device="cuda") < 0.8
+    return torch.where(coin, topical, background), labels
+
+
+def phase_lm_embed(torch, cfg, params):
+    """embed_corpus at full width, then the default Stars build over the
+    embeddings and affinity clustering.  Returns the launch counts of the
+    whole path and the corpus."""
+    import numpy as np
+    from repro_torch import GraphBuilder, PointFeatures, StarsConfig
+    from repro_torch.graph.affinity import affinity_clustering
+    from repro_torch.graph.metrics import v_measure
+    from repro_torch.launch.serve import embed_corpus
+    toks, labels = lm_corpus(torch, LM_DOCS, LM_SEQ, LM_CLASSES, cfg.vocab,
+                             SEED + 7)
+    n_layers = cfg.n_layers
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t = time.perf_counter()
+    emb = embed_corpus(cfg, params, toks, block=LM_BLOCK)
+    torch.cuda.synchronize()
+    embed_s = time.perf_counter() - t
+    flash = read_launches()["flash_attention"]
+    check(flash == n_layers * LM_DOCS // LM_BLOCK,
+          f"lm_embed: flash_attention launched {flash} times, expected "
+          f"{n_layers * LM_DOCS // LM_BLOCK}")
+    check(emb.shape == (LM_DOCS, cfg.d_model) and emb.dtype == torch.float32,
+          f"lm_embed: embeddings {tuple(emb.shape)} {emb.dtype}")
+    check(bool(torch.isfinite(emb).all()), "lm_embed: non-finite embedding")
+    peak = torch.cuda.max_memory_allocated()
+    t = time.perf_counter()
+    graph = GraphBuilder(PointFeatures(dense=emb), StarsConfig()) \
+        .add_reps().finalize()
+    build_s = time.perf_counter() - t
+    launches = read_launches()
+    for name in ("window_score", "topk_merge"):
+        check(launches[name] > 0, f"lm_embed: {name} never launched")
+    check(graph.num_edges > 0 and bool(np.isfinite(graph.w).all()),
+          "lm_embed: empty or non-finite graph")
+    pred = affinity_clustering(graph, target_clusters=LM_CLASSES)
+    v = v_measure(labels.cpu().numpy(), pred)["v"]
+    emit({"phase": "lm_embed", "model": cfg.name, "docs": LM_DOCS,
+          "seq": LM_SEQ, "block": LM_BLOCK, "embed_seconds": embed_s,
+          "tokens_per_s": LM_DOCS * LM_SEQ / embed_s,
+          "flash_attention_launches_in_embed": flash,
+          "peak_device_bytes_embed": peak, "build_seconds": build_s,
+          "comparisons": graph.stats["comparisons"],
+          "edges": graph.num_edges, "clusters": int(len(np.unique(pred))),
+          "v_measure": v, "launches": launches})
+    profile_call(torch, "lm_embed (one block of 64 sequences)",
+                 lambda: embed_corpus(cfg, params, toks[:LM_BLOCK],
+                                      block=LM_BLOCK),
+                 groups={"flash_attention": ("flash_attention",),
+                         "matmul": MATMUL_KERNELS})
+    return launches, toks
+
+
+# decode against forward at full width in bf16: both round the residual
+# stream to bf16 after every layer, but take their products at other
+# shapes (and attention by another route), so roundings differ by an ulp
+# here and there and grow over 26 layers.  The bound is stated relative
+# to the largest logit.
+LM_DECODE_RTOL = 0.05
+
+
+def phase_lm_generate(torch, cfg, params, toks):
+    """generate (greedy) for 8 prompts of 128 tokens, then the decode
+    steps' logits against forward's on the same tokens."""
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import decode_step, forward, init_cache
+    prompt = toks[:8, :128]
+    out, stats = generate(cfg, params, prompt, max_new=32, max_len=256)
+    check(out.shape == (8, 160) and torch.equal(out[:, :128], prompt),
+          f"lm_generate: output {tuple(out.shape)}")
+    check(bool(((out >= 0) & (out < cfg.vocab)).all()),
+          "lm_generate: token out of the vocab")
+    logits, _ = forward(cfg, params, {"tokens": out})
+    cache = init_cache(cfg, 8, 256)
+    err = 0.0
+    for t in range(out.shape[1]):
+        lg, cache = decode_step(cfg, params, out[:, t:t + 1], cache, t)
+        err = max(err, (lg.float() - logits[:, t].float()).abs().max().item())
+    scale = logits.float().abs().max().item()
+    emit({"phase": "lm_generate", "prompts": 8, "prompt_len": 128,
+          "new_tokens": 32, "max_len": 256, **stats,
+          "decode_vs_forward_max_abs": err, "max_abs_logit": scale,
+          "rtol": LM_DECODE_RTOL})
+    check(math.isfinite(err) and err <= LM_DECODE_RTOL * scale,
+          f"lm_generate: decode logits differ from forward's by {err} "
+          f"(largest logit {scale})")
+
+
+def phase_lm_parity(torch):
+    """gemma3's REDUCED config in fp32 on CUDA and on the CPU: forward
+    logits, embed_corpus and greedy generate agree."""
+    import dataclasses
+    from repro_torch.configs import gemma3_1b
+    from repro_torch.launch.serve import embed_corpus, generate
+    from repro_torch.models import forward, init_params
+    cfg = dataclasses.replace(gemma3_1b.REDUCED, dtype=torch.float32,
+                              param_dtype=torch.float32)
+    p_cpu = init_params(cfg, torch.Generator().manual_seed(SEED),
+                        device="cpu")
+    p_gpu = {k: ([{n: t.cuda() for n, t in layer.items()} for layer in v]
+                 if k == "layers" else v.cuda()) for k, v in p_cpu.items()}
+    gen = torch.Generator().manual_seed(SEED + 8)
+    toks = torch.randint(0, cfg.vocab, (4, 64), generator=gen)
+    res = {}
+    for dev, p in (("cuda", p_gpu), ("cpu", p_cpu)):
+        t = toks.to(dev)
+        logits, _ = forward(cfg, p, {"tokens": t})
+        emb = embed_corpus(cfg, p, t, block=2)
+        out, _ = generate(cfg, p, t[:, :16], max_new=16, max_len=32)
+        res[dev] = (logits.cpu(), emb.cpu(), out.cpu())
+    d_logits = (res["cuda"][0] - res["cpu"][0]).abs().max().item()
+    d_emb = (res["cuda"][1] - res["cpu"][1]).abs().max().item()
+    same_tokens = torch.equal(res["cuda"][2], res["cpu"][2])
+    emit({"phase": "lm_parity", "config": cfg.name, "logits_max_abs": d_logits,
+          "embed_max_abs": d_emb, "greedy_tokens_equal": same_tokens})
+    check(d_logits <= 1e-4, f"lm_parity: logits differ by {d_logits}")
+    check(d_emb <= 1e-5, f"lm_parity: embeddings differ by {d_emb}")
+    check(same_tokens, "lm_parity: greedy tokens differ")
+
+
+def phase_lm(torch) -> dict:
+    """The three LM phases on one full-width model; returns the embedding
+    path's launch counts."""
+    from repro_torch.configs import gemma3_1b
+    from repro_torch.models import init_params
+    cfg = gemma3_1b.CONFIG
+    t = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    n_params = sum(t_.numel() for layer in params["layers"]
+                   for t_ in layer.values()) \
+        + sum(v.numel() for k, v in params.items() if k != "layers")
+    emit({"phase": "lm_init", "model": cfg.name, "params": n_params,
+          "layers": cfg.n_layers, "d_model": cfg.d_model,
+          "heads": [cfg.n_heads, cfg.n_kv_heads], "head_dim": cfg.hd,
+          "vocab": cfg.vocab, "dtype": str(cfg.dtype),
+          "seconds": time.perf_counter() - t})
+    launches, toks = phase_lm_embed(torch, cfg, params)
+    phase_lm_generate(torch, cfg, params, toks)
+    del params, toks
+    torch.cuda.empty_cache()
+    phase_lm_parity(torch)
+    return launches
 
 
 def phase_parity(torch, name, cfg) -> None:
@@ -647,7 +970,7 @@ def main() -> int:
     phase_build()
     kernels = []
     for phase in (phase_window_score, phase_topk_merge, phase_leader_score,
-                  phase_simhash):
+                  phase_simhash, phase_flash_attention):
         kernels.append(phase(torch))
         torch.cuda.empty_cache()
     x = clustered_points(torch, N_E2E, D_E2E, classes=1000, spread=0.05,
@@ -657,6 +980,7 @@ def main() -> int:
                "e2e_prefilter": phase_e2e_prefilter(torch, x)}
     del x
     torch.cuda.empty_cache()
+    by_path["lm_embed"] = phase_lm(torch)
     for name, cfg in parity_configs().items():
         phase_parity(torch, name, cfg)
     for k in kernels:

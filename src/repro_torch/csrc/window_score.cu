@@ -53,6 +53,7 @@ struct Params {
   float r1;
 };
 
+template <bool kChunked>
 __global__ void __launch_bounds__(kThreads)
 window_score_kernel(Params p) {
   extern __shared__ float4 smem4[];
@@ -67,7 +68,7 @@ window_score_kernel(Params p) {
   const bool keep = p.refresh_below > 0 ? p.keep[win] != 0 : true;
   int my_comp = 0, my_emit = 0;
 
-  tiles::score_window(
+  tiles::score_window<kChunked>(
       p.leaders + static_cast<size_t>(win) * p.s * p.d,
       p.members + static_cast<size_t>(win) * p.w * p.d, p.s, p.w, p.d,
       p.stride, p.normalized, reinterpret_cast<float*>(smem4),
@@ -121,10 +122,6 @@ window_score_kernel(Params p) {
 
 }  // namespace
 
-extern "C" int window_score_smem_bytes(int d) {
-  return tiles::smem_bytes(d);
-}
-
 // Launch on `stream`; returns cudaGetLastError() (0 on success).
 extern "C" int window_score_launch(
     const float* leaders, const float* members, const int32_t* leader_slot,
@@ -139,11 +136,12 @@ extern "C" int window_score_launch(
            member_ok, lead_bucket, bucket, keep, sims, emit, comparisons,
            emitted, s, w, d, tiles::row_stride(d), normalized,
            allpairs, match_bucket, new_from, refresh_below, has_r1, r1};
-  const int smem = window_score_smem_bytes(d);
+  const int smem = tiles::smem_bytes(d);
+  auto kernel = d > tiles::kMaxChunk ? window_score_kernel<true>
+                                     : window_score_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      window_score_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  window_score_kernel<<<nw, kThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(p);
+  kernel<<<nw, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

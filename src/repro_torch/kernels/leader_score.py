@@ -29,8 +29,6 @@ def _fn():
     if fn.argtypes is None:
         fn.argtypes = [_P] * 5 + [ctypes.c_longlong] + [_I] * 4 + [_P]
         fn.restype = _I
-        lib.leader_score_smem_bytes.argtypes = [_I]
-        lib.leader_score_smem_bytes.restype = _I
         lib.leader_score_auto_path.argtypes = [_I, _I]
         lib.leader_score_auto_path.restype = _I
     return lib, fn
@@ -63,13 +61,7 @@ def leader_score(leaders: torch.Tensor, members: torch.Tensor,
                 f"leader_score: {name} must be a contiguous {dtype} tensor "
                 f"of shape {shape} on {dev}; got {t.dtype} "
                 f"{tuple(t.shape)} on {t.device}")
-    lib, fn = _fn()
-    if auto_path(s, w) == "tile":
-        smem = lib.leader_score_smem_bytes(d)
-        if smem > 227 * 1024:
-            raise ValueError(f"leader_score: d={d} needs {smem} bytes of "
-                             "shared memory per block, more than a block "
-                             "can have")
+    _, fn = _fn()
     sims = torch.empty((nw, s, w), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

@@ -12,6 +12,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import leader_score as _ls
 from repro_torch.kernels import ref
 from repro_torch.kernels import simhash as _sh
@@ -57,3 +58,11 @@ def topk_merge(slab_nbr, slab_w, inc_nbr, inc_w):
     """Per-node top-k slab merge; see ``ref.topk_merge_ref``."""
     fn = _tm.topk_merge if _on_cuda(slab_nbr) else ref.topk_merge_ref
     return fn(slab_nbr, slab_w, inc_nbr, inc_w)
+
+
+def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
+              scale: Optional[float] = None):
+    """GQA attention with causal / sliding-window masks; see
+    ``ref.mha_ref``."""
+    fn = _fa.flash_attention if _on_cuda(q) else ref.mha_ref
+    return fn(q, k, v, causal=causal, window=window, scale=scale)

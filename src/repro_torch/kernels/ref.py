@@ -144,3 +144,34 @@ def topk_merge_ref(slab_nbr: torch.Tensor, slab_w: torch.Tensor,
     out_w = torch.where(out_valid, -negw_f,
                         torch.full_like(negw_f, float("-inf")))
     return out_nbr.to(torch.int32), out_w
+
+
+def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+            causal: bool = True, window: Optional[int] = None,
+            scale: Optional[float] = None) -> torch.Tensor:
+    """Grouped-query attention.
+
+    q: (b, hq, sq, d); k, v: (b, hkv, sk, d); hq % hkv == 0.  Scores are
+    fp32 over KV heads repeated to hq; positions are right-aligned (query
+    row i sits at key position sk - sq + i); window=w keeps key j for
+    query i iff i - w < j.  Returns (b, hq, sq, d) in q's dtype.
+    """
+    sq, d = q.shape[2], q.shape[3]
+    g = q.shape[1] // k.shape[1]
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    qf = q.to(torch.float32)
+    kf = k.to(torch.float32).repeat_interleave(g, dim=1)
+    vf = v.to(torch.float32).repeat_interleave(g, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+    sk = kf.shape[2]
+    qpos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    s = torch.where(mask, s, torch.full_like(s, float("-inf")))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhqk,bhkd->bhqd", p, vf)
+    return o.to(q.dtype)

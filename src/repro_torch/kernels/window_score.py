@@ -24,14 +24,11 @@ _I = ctypes.c_int
 
 
 def _fn():
-    lib = _build.load("window_score")
-    fn = lib.window_score_launch
+    fn = _build.load("window_score").window_score_launch
     if fn.argtypes is None:
         fn.argtypes = [_P] * 14 + [_I] * 10 + [ctypes.c_float, _P]
         fn.restype = _I
-        lib.window_score_smem_bytes.argtypes = [_I]
-        lib.window_score_smem_bytes.restype = _I
-    return lib, fn
+    return fn
 
 
 def _require(t: torch.Tensor, name: str, dtype: torch.dtype, shape,
@@ -76,11 +73,7 @@ def window_score(leaders: torch.Tensor, members: torch.Tensor,
             (bucket, "bucket", i32, (nw, w)),
             (keep, "keep", b, (nw,))):
         _require(t, name, dtype, shape, dev)
-    lib, fn = _fn()
-    smem = lib.window_score_smem_bytes(d)
-    if smem > 227 * 1024:
-        raise ValueError(f"window_score: d={d} needs {smem} bytes of shared "
-                         "memory per block, more than a block can have")
+    fn = _fn()
     sims = torch.empty((nw, s, w), dtype=f32, device=dev)
     emit = torch.empty((nw, s, w), dtype=b, device=dev)
     comparisons = torch.empty((nw,), dtype=i32, device=dev)

@@ -89,13 +89,22 @@ def bits(k: Key, shape: Sequence[int], *,
 
 
 def uniform(k: Key, shape: Sequence[int], *, minval: float = 0.0,
-            maxval: float = 1.0,
+            maxval: float = 1.0, dtype: torch.dtype = torch.float32,
             device: Union[str, torch.device] = "cpu") -> torch.Tensor:
-    """``jax.random.uniform`` in float32: the top 23 bits fill a mantissa."""
+    """``jax.random.uniform`` in float32 or bfloat16: the top 23 bits of
+    a draw fill a float32 mantissa; for bfloat16 JAX draws 8 bits (its
+    mantissa has 7), so the top 7 of the draw's low byte fill it."""
     b = bits(k, shape, device=device)
-    floats = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=device)
+    if dtype == torch.float32:
+        floats = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+    elif dtype == torch.bfloat16:
+        floats = (((b & 0xFF) >> 1) | 0x3F80).to(torch.int16) \
+            .view(torch.bfloat16)
+    else:
+        raise TypeError(f"uniform: dtype {dtype} is not float32 or bfloat16")
+    floats = floats - 1.0
+    lo = torch.tensor(minval, dtype=dtype, device=device)
+    hi = torch.tensor(maxval, dtype=dtype, device=device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
 
 
