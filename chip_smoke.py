@@ -11,7 +11,10 @@ Phases, one JSON line each; any failed check exits non-zero:
   3. kernels: each kernel against its plain PyTorch version on the card, on
               a sweep of edge shapes and at the main paths' shapes, with
               its time there, the plain version's, a one-call library
-              yardstick where one exists, and its bound.
+              yardstick where one exists, and its bound; flash_attention
+              in both its designs (tensor cores for bf16 at head dims 64,
+              128 and 256, fp32 FMA otherwise), each row naming the one
+              that ran, and the FMA design timed at the path's shape too.
   4. e2e:     GraphBuilder(x, StarsConfig()).add_reps().finalize() at
               n = 2**20, d = 128 (clustered points made on the card from a
               seeded torch.Generator), with the kernels' launch counts over
@@ -23,8 +26,9 @@ Phases, one JSON line each; any failed check exits non-zero:
               prefilter (max distance 24), on the first 2**18 points.
   7. lm_embed: gemma3-1b at full width and depth (random weights from a
               seeded torch.Generator) embeds 4,096 sequences of 2,048
-              tokens with embed_corpus, then the default Stars build over
-              the embeddings and affinity clustering; one block profiled.
+              tokens with embed_corpus (every flash_attention launch on the
+              tensor-core design), then the default Stars build over the
+              embeddings and affinity clustering; one block profiled.
   8. lm_generate: generate (greedy) for 8 prompts of 128 tokens on the
               same model, and the decode steps' logits against forward's.
   9. lm_parity: gemma3's reduced config in fp32 on CUDA and on the CPU:
@@ -443,22 +447,28 @@ def phase_simhash(torch) -> dict:
 
 # (b, hq, hkv, sq, sk, d): the shapes of tests/test_kernels.py, head dim
 # 256 with a GQA group of 4, and ragged edges: rows and keys not a
-# multiple of the kernel's 64-row blocks, head dims 8, 100 and 512
+# multiple of the kernels' 64- and 128-row blocks, head dims 8, 100 and
+# 512; in bf16, head dims 64, 128 and 256 reach the tensor-core design
 FLASH_SWEEP = [(1, 2, 2, 32, 32, 16), (2, 4, 2, 64, 64, 32),
                (2, 8, 1, 32, 32, 64), (1, 4, 4, 32, 128, 16),
                (1, 4, 1, 256, 256, 256), (2, 2, 1, 100, 130, 8),
-               (1, 3, 3, 70, 70, 100), (1, 2, 1, 96, 96, 512)]
+               (1, 3, 3, 70, 70, 100), (1, 2, 1, 96, 96, 512),
+               (1, 4, 1, 130, 200, 128), (2, 4, 2, 77, 300, 64)]
 # The sweep runs causal without a window; these (shape, causal, window)
 # cases add the windows of tests/test_kernels.py on (2, 4, 2, 64, 64,
-# 32), window 512 at head dim 256, a window not a multiple of the block,
-# and shapes without the causal mask
+# 32), window 512 at head dim 256, windows not a multiple of the blocks
+# at head dims 256, 128 and 64 with ragged rows and keys, and shapes
+# without the causal mask
 FLASH_EXTRA = [((2, 4, 2, 64, 64, 32), True, 8),
                ((2, 4, 2, 64, 64, 32), True, 16),
                ((2, 4, 2, 64, 64, 32), True, 64),
                ((1, 4, 1, 1024, 1024, 256), True, 512),
                ((1, 4, 1, 130, 130, 256), True, 40),
                ((2, 4, 2, 64, 64, 32), False, None),
-               ((1, 4, 1, 130, 200, 64), False, 50)]
+               ((1, 4, 1, 130, 200, 64), False, 50),
+               ((1, 4, 1, 130, 200, 128), True, 40),
+               ((1, 4, 2, 300, 300, 64), True, 100),
+               ((1, 4, 1, 200, 333, 128), False, 70)]
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 BF16_FLOP_PER_S = 989e12        # H100 SXM bf16 dense on the tensor cores
 
@@ -480,23 +490,29 @@ def flash_inputs(torch, gen, shape, dtype):
         randn((b, hkv, sk, d))
 
 
-def check_flash(torch, args, causal, window) -> float:
+def check_flash(torch, args, causal, window):
     """Hold the kernel against its plain version within FLASH_TOL; returns
-    the largest difference."""
+    the largest difference and the design that ran (read from the
+    wrapper's launch counts, which must agree with its dispatch)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     q, k, v = args
     what = (f"flash_attention {tuple(q.shape)} x {tuple(k.shape)} {q.dtype} "
             f"causal={causal} window={window}")
+    before = dict(fa.design_launches)
     got = fa.flash_attention(q, k, v, causal=causal, window=window)
     want = ref.mha_ref(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
+    ran = [d for d, n in fa.design_launches.items() if n != before[d]]
+    check(ran == [fa._design(q.dtype, q.shape[-1])],
+          f"{what}: launched {ran}, dispatch says "
+          f"{fa._design(q.dtype, q.shape[-1])}")
     check(got.dtype == q.dtype and got.shape == q.shape, f"{what}: shape")
     check(bool(torch.isfinite(want).all()), f"{what}: plain version not finite")
     err = (got.float() - want.float()).abs().max().item()
     check(err <= FLASH_TOL[str(q.dtype).split(".")[-1]],
           f"{what}: differs by {err}")
-    return err
+    return err, ran[0]
 
 
 # The LM path's two calls: gemma3-1b (hq 4, hkv 1, head dim 256) on a
@@ -512,24 +528,38 @@ def phase_flash_attention(torch) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
     cases = [(shape, True, None) for shape in FLASH_SWEEP] + FLASH_EXTRA
     for dtype in (torch.float32, torch.bfloat16):
-        errs = [check_flash(torch, flash_inputs(torch, gen, shape, dtype),
-                            causal, window)
-                for shape, causal, window in cases]
-        emit({"phase": "kernels", "kernel": "flash_attention",
-              "dtype": str(dtype), "cases": len(cases),
-              "max_abs_err": max(errs)})
+        by_design = {}
+        for shape, causal, window in cases:
+            err, design = check_flash(
+                torch, flash_inputs(torch, gen, shape, dtype), causal, window)
+            by_design.setdefault(design, []).append(err)
+        for design, errs in sorted(by_design.items()):
+            emit({"phase": "kernels", "kernel": "flash_attention",
+                  "dtype": str(dtype), "design": design, "cases": len(errs),
+                  "max_abs_err": max(errs)})
     b, hq, hkv, sq, sk, d = FLASH_PATH
     q, k, v = flash_inputs(torch, gen, FLASH_PATH, torch.bfloat16)
     shapes = []
     for label, window in (("global", None), ("local", 512)):
-        err = check_flash(torch, (q, k, v), True, window)
+        err, design = check_flash(torch, (q, k, v), True, window)
+        check(design == "wgmma", f"flash_attention {label}: the path's "
+              f"call ran the {design} design")
+        # the FMA design on the same inputs, beside the tensor-core one
+        fma_out = fa._launch("fma", q, k, v, True, window, None)
+        want = ref.mha_ref(q, k, v, causal=True, window=window)
+        fma_err = (fma_out.float() - want.float()).abs().max().item()
+        check(fma_err <= FLASH_TOL["bfloat16"],
+              f"flash_attention {label}: the fma design differs by {fma_err}")
+        del fma_out, want
         ms = cuda_ms(torch, lambda: fa.flash_attention(
-            q, k, v, causal=True, window=window), 5)
+            q, k, v, causal=True, window=window), 20)
+        fma_ms = cuda_ms(torch, lambda: fa._launch(
+            "fma", q, k, v, True, window, None), 3)
         plain_ms = cuda_ms(torch, lambda: ref.mha_ref(
             q, k, v, causal=True, window=window), 2)
         if window is None:
             library_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True), 5)
+                q, k, v, is_causal=True, enable_gqa=True), 20)
         else:
             pos = torch.arange(sq, device="cuda")
             band = (pos[None, :] <= pos[:, None]) \
@@ -538,18 +568,29 @@ def phase_flash_attention(torch) -> dict:
                 q, k, v, attn_mask=band, enable_gqa=True), 5)
         pairs = visible_pairs(sq, sk, True, window)
         moved = 2 * nbytes(q) + nbytes(k, v)
+        flops = 4.0 * d * pairs * b * hq
+        # the split's P @ V takes two bf16 products where the contract
+        # counts one: 1.5x the tensor work
+        split = bound(moved, 1.5 * flops, BF16_FLOP_PER_S)["bound_ms"]
         row = {"at": label, "shape": list(FLASH_PATH), "window": window,
-               "dtype": "bfloat16", "max_abs_err": err, "ms": ms,
-               "plain_ms": plain_ms, "library_ms": library_ms,
+               "dtype": "bfloat16", "design": design, "max_abs_err": err,
+               "ms": ms, "fma_design_ms": fma_ms,
+               "fma_design_max_abs_err": fma_err, "plain_ms": plain_ms,
+               "library_ms": library_ms,
                "library": "torch.nn.functional.scaled_dot_product_attention",
                "visible_pairs_per_head": pairs,
-               **bound(moved, 4.0 * d * pairs * b * hq, BF16_FLOP_PER_S)}
+               "contract_tflop_per_s": flops / ms / 1e9,
+               **bound(moved, flops, BF16_FLOP_PER_S),
+               "split_bound_ms": split}
         emit({"phase": "kernels", "kernel": "flash_attention", **row})
         shapes.append(row)
         torch.cuda.empty_cache()
     local = shapes[1]
     return {"name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "source": "src/repro_torch/csrc/flash_attention_wgmma.cu",
+            "sources_by_design": {
+                "wgmma": "src/repro_torch/csrc/flash_attention_wgmma.cu",
+                "fma": "src/repro_torch/csrc/flash_attention.cu"},
             "replaces": "src/repro/kernels/flash_attention.py:93",
             "max_abs_err": max(r["max_abs_err"] for r in shapes),
             **{k: local[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
@@ -575,8 +616,10 @@ def kernel_modules():
 
 
 def reset_launches() -> None:
+    from repro_torch.kernels import flash_attention
     for mod in kernel_modules().values():
         mod.launches = 0
+    flash_attention.design_launches.update(wgmma=0, fma=0)
 
 
 def read_launches() -> dict:
@@ -778,6 +821,7 @@ def phase_lm_embed(torch, cfg, params):
     from repro_torch import GraphBuilder, PointFeatures, StarsConfig
     from repro_torch.graph.affinity import affinity_clustering
     from repro_torch.graph.metrics import v_measure
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch.serve import embed_corpus
     toks, labels = lm_corpus(torch, LM_DOCS, LM_SEQ, LM_CLASSES, cfg.vocab,
                              SEED + 7)
@@ -790,9 +834,13 @@ def phase_lm_embed(torch, cfg, params):
     torch.cuda.synchronize()
     embed_s = time.perf_counter() - t
     flash = read_launches()["flash_attention"]
+    designs = dict(fa.design_launches)
     check(flash == n_layers * LM_DOCS // LM_BLOCK,
           f"lm_embed: flash_attention launched {flash} times, expected "
           f"{n_layers * LM_DOCS // LM_BLOCK}")
+    check(designs == {"wgmma": flash, "fma": 0},
+          f"lm_embed: flash_attention launches by design {designs}: all "
+          f"{flash} should be the tensor-core design")
     check(emb.shape == (LM_DOCS, cfg.d_model) and emb.dtype == torch.float32,
           f"lm_embed: embeddings {tuple(emb.shape)} {emb.dtype}")
     check(bool(torch.isfinite(emb).all()), "lm_embed: non-finite embedding")
@@ -802,6 +850,7 @@ def phase_lm_embed(torch, cfg, params):
         .add_reps().finalize()
     build_s = time.perf_counter() - t
     launches = read_launches()
+    launches["flash_attention_by_design"] = designs
     for name in ("window_score", "topk_merge"):
         check(launches[name] > 0, f"lm_embed: {name} never launched")
     check(graph.num_edges > 0 and bool(np.isfinite(graph.w).all()),
@@ -812,6 +861,7 @@ def phase_lm_embed(torch, cfg, params):
           "seq": LM_SEQ, "block": LM_BLOCK, "embed_seconds": embed_s,
           "tokens_per_s": LM_DOCS * LM_SEQ / embed_s,
           "flash_attention_launches_in_embed": flash,
+          "flash_attention_launches_by_design": designs,
           "peak_device_bytes_embed": peak, "build_seconds": build_s,
           "comparisons": graph.stats["comparisons"],
           "edges": graph.num_edges, "clusters": int(len(np.unique(pred))),
@@ -987,6 +1037,9 @@ def main() -> int:
         k["launches"] = sum(c[k["name"]] for c in by_path.values())
         k["launches_by_path"] = {p: c[k["name"]] for p, c in by_path.items()}
         check(k["launches"] > 0, f"{k['name']} was never launched")
+    flash = next(k for k in kernels if k["name"] == "flash_attention")
+    flash["launches_by_design"] = \
+        by_path["lm_embed"]["flash_attention_by_design"]
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

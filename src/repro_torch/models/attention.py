@@ -23,6 +23,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models.common import (ModelConfig, ParamInit, apply_rope,
                                        rms_norm, rope_freqs)
@@ -74,13 +75,14 @@ def attn_fwd(p: Dict[str, torch.Tensor], cfg: ModelConfig, x: torch.Tensor,
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                   window: Optional[int] = None, dtype=None,
-                  device: Optional[torch.device] = None
-                  ) -> Dict[str, torch.Tensor]:
+                  device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """Zeroed K and V caches, on the card unless ``device="cpu"``."""
     dtype = dtype or cfg.dtype
+    dev = resolve_device(device)
     slots = min(window, max_len) if window is not None else max_len
     shape = (batch, cfg.n_kv_heads, slots, cfg.hd)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
 
 def attn_decode(p: Dict[str, torch.Tensor], cfg: ModelConfig,

@@ -207,6 +207,25 @@ def test_attn_fwd_matches_jax(window, theta):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
 
 
+@pytest.mark.parametrize("window", [None, 4])
+def test_init_kv_cache_resolves_its_device(monkeypatch, window):
+    """With no device the cache goes to the card, and without one that
+    raises; device="cpu" gives the JAX cache's shapes, dtype and zeros."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        t_attn.init_kv_cache(T_REDUCED32, 2, 16, window=window)
+    got = t_attn.init_kv_cache(T_REDUCED32, 2, 16, window=window,
+                               device="cpu")
+    want = j_attn.init_kv_cache(J_REDUCED32, 2, 16, window=window)
+    assert set(got) == set(want) == {"k", "v"}
+    for name in ("k", "v"):
+        assert got[name].device.type == "cpu"
+        assert got[name].dtype == torch.float32
+        assert tuple(got[name].shape) == want[name].shape
+        assert not got[name].any()
+        assert not np.asarray(want[name]).any()
+
+
 # --------------------------------------------------------------------------- #
 # the stack and the serving entry points
 # --------------------------------------------------------------------------- #
