@@ -13,8 +13,10 @@ Phases, one JSON line each; any failed check exits non-zero:
               its time there, the plain version's, a one-call library
               yardstick where one exists, and its bound; flash_attention
               in both its designs (tensor cores for bf16 at head dims 64,
-              128 and 256, fp32 FMA otherwise), each row naming the one
-              that ran, and the FMA design timed at the path's shape too.
+              128 and 256, fp32 FMA otherwise) and leader_score in its
+              three (pipe, tile, rows), each row naming the one that ran,
+              and the other design timed beside the path's at its shape
+              (flash_attention's FMA design, leader_score's tile design).
   4. e2e:     GraphBuilder(x, StarsConfig()).add_reps().finalize() at
               n = 2**20, d = 128 (clustered points made on the card from a
               seeded torch.Generator), with the kernels' launch counts over
@@ -235,6 +237,7 @@ def phase_window_score(torch) -> dict:
     moved = nbytes(*args) + nbytes(*out)
     return {"name": "window_score", "route": "cuda",
             "source": "src/repro_torch/csrc/window_score.cu",
+            "designs": ["tile"],
             "replaces": "src/repro/kernels/window_score.py:97",
             "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, **bound(moved, 2.0 * nw * s * w * d)}
@@ -295,6 +298,7 @@ def phase_topk_merge(torch) -> dict:
     # no single PyTorch call dedups by neighbour and keeps the top k
     return {"name": "topk_merge", "route": "cuda",
             "source": "src/repro_torch/csrc/topk_merge.cu",
+            "designs": ["bitonic"],
             "replaces": "src/repro/kernels/topk_merge.py:67",
             "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
             "library_ms": None,
@@ -312,17 +316,30 @@ def leader_score_inputs(torch, gen, nw, s, w, d, masked=True):
     return rows((nw, s, d)), rows((nw, w, d)), ok((nw, s)), ok((nw, w))
 
 
-def check_leader_score(torch, args, normalized) -> float:
+def check_leader_score(torch, args, normalized) -> tuple:
     """Hold the kernel against its plain version: the same -inf pattern,
-    finite similarities within 1e-5; returns the largest difference."""
+    finite similarities within 1e-5.  Returns the largest difference and
+    the design that ran (read from the wrapper's launch counts, which must
+    agree with its dispatch)."""
     from repro_torch.kernels import leader_score as ls
     from repro_torch.kernels import ref
-    shape = tuple(args[0].shape) + (args[1].shape[1],)
-    what = f"leader_score (nw, s, d, W)={shape} normalized={normalized} " \
-        f"design={ls.auto_path(shape[1], shape[3])}"
+    nw, s, d = args[0].shape
+    w = args[1].shape[1]
+    design = ls._design(s, w, d)
+    what = f"leader_score (nw, s, d, W)={(nw, s, d, w)} " \
+        f"normalized={normalized} design={design}"
+    before = dict(ls.design_launches)
     got = ls.leader_score(*args, normalized=normalized)
     want = ref.leader_score_ref(*args, normalized=normalized)
     torch.cuda.synchronize()
+    ran = [k for k, n in ls.design_launches.items() if n != before[k]]
+    check(ran == [design], f"{what}: launched {ran}")
+    return check_sims(torch, what, got, want), design
+
+
+def check_sims(torch, what, got, want) -> float:
+    """The same -inf pattern, finite similarities within 1e-5; returns
+    the largest difference."""
     check(torch.equal(torch.isneginf(got), torch.isneginf(want)),
           f"{what}: -inf pattern differs")
     fin = torch.isfinite(want)
@@ -331,16 +348,25 @@ def check_leader_score(torch, args, normalized) -> float:
     return err
 
 
-# (nw, s, W, d): the tests' shapes, the 1 x 1 tiles of LSH-Stars, s > 32
-# (several leader tiles) and d not a multiple of 4, for each of the
-# kernel's designs (tile where s * W >= 256, else rows), with tiles on
-# either side of 256, and rows wider than one staged chunk of 512
-LEADER_SCORE_SWEEP = [(1, 4, 8, 16), (5, 8, 24, 16), (3, 25, 250, 64),
-                      (2, 1, 16, 8), (1000, 1, 1, 16), (6, 40, 100, 128),
-                      (4, 33, 65, 7), (7, 3, 5, 33), (3, 1, 1, 5),
-                      (3, 16, 16, 9), (3, 15, 17, 9), (2, 40, 6, 33),
-                      (2, 1, 256, 16), (3, 25, 250, 1152), (2, 40, 70, 1030),
-                      (2, 1, 16, 1152)]
+# (nw, s, W, d, masked): the tests' shapes, the 1 x 1 tiles of LSH-Stars,
+# s > 32 (several leader tiles) and d not a multiple of 4, for each of
+# the kernel's designs (pipe where s * W >= 256 with d % 4 == 0 and
+# d <= 512, tile for the other s * W >= 256, else rows), with tiles on
+# either side of 256, and rows wider than one staged chunk of 512; then
+# the pipe design's edges: s = 25 / 33 / 40 (one leader tile, one row
+# past it, a ragged second one) with W = 250 / 65 / 70 (a 58-row last
+# member tile, one row past a tile, a ragged one) at d = 4, 32, 128 and
+# 512, masked and unmasked, on more windows than the card has blocks
+LEADER_SCORE_SWEEP = [
+    (1, 4, 8, 16, True), (5, 8, 24, 16, True), (3, 25, 250, 64, True),
+    (2, 1, 16, 8, True), (1000, 1, 1, 16, True), (6, 40, 100, 128, True),
+    (4, 33, 65, 7, True), (7, 3, 5, 33, True), (3, 1, 1, 5, True),
+    (3, 16, 16, 9, True), (3, 15, 17, 9, True), (2, 40, 6, 33, True),
+    (2, 1, 256, 16, True), (3, 25, 250, 1152, True),
+    (2, 40, 70, 1030, True), (2, 1, 16, 1152, True)] + [
+    (nw, s, w, d, masked)
+    for (nw, s, w) in ((300, 25, 250), (70, 33, 65), (41, 40, 70))
+    for d in (4, 32, 128, 512) for masked in (True, False)]
 
 
 def phase_leader_score(torch) -> dict:
@@ -348,13 +374,20 @@ def phase_leader_score(torch) -> dict:
     from repro_torch.kernels import leader_score as ls
     from repro_torch.kernels import ref
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
-    for nw, s, w, d in LEADER_SCORE_SWEEP:
-        args = leader_score_inputs(torch, gen, nw, s, w, d)
-        err = max(check_leader_score(torch, args, normalized)
-                  for normalized in (True, False))
+    by_design = {}
+    for nw, s, w, d, masked in LEADER_SCORE_SWEEP:
+        args = leader_score_inputs(torch, gen, nw, s, w, d, masked)
+        errs = []
+        for normalized in (True, False):
+            err, design = check_leader_score(torch, args, normalized)
+            errs.append(err)
+        by_design.setdefault(design, []).extend(errs)
         emit({"phase": "kernels", "kernel": "leader_score",
-              "shape": [nw, s, w, d], "path": ls.auto_path(s, w),
-              "max_abs_err": err})
+              "shape": [nw, s, w, d], "masked": masked, "design": design,
+              "max_abs_err": max(errs)})
+    for design, errs in sorted(by_design.items()):
+        emit({"phase": "kernels", "kernel": "leader_score", "design": design,
+              "cases": len(errs), "max_abs_err": max(errs)})
     shapes = []
     # the two builds' calls: LSH-Stars scores every slot of its grid
     # against its bucket's leader as (slots, 1, 1) tiles; the prefilter
@@ -365,9 +398,10 @@ def phase_leader_score(torch) -> dict:
                            25, 250))):
         d = D_E2E
         args = leader_score_inputs(torch, gen, nw, s, w, d, masked=False)
-        err = check_leader_score(torch, args, True)
+        err, design = check_leader_score(torch, args, True)
         ms = cuda_ms(torch, lambda: ls.leader_score(*args), 20)
         plain_ms = cuda_ms(torch, lambda: ref.leader_score_ref(*args), 5)
+        extra = {}
         if s == w == 1:
             # one call for the cosine of row pairs
             a, b = args[0][:, 0], args[1][:, 0]
@@ -380,18 +414,34 @@ def phase_leader_score(torch) -> dict:
             la, mb = nrm(args[0]), nrm(args[1]).transpose(1, 2)
             library_ms = cuda_ms(torch, lambda: torch.bmm(la, mb), 20)
             library = "torch.bmm of the normalised tiles (product only)"
+            del la, mb
+            # the tile design on the same inputs, beside the pipe design
+            want = ref.leader_score_ref(*args)
+            tile_err = check_sims(
+                torch, f"leader_score {label}: the tile design",
+                ls._launch("tile", *args, True), want)
+            del want
+            tile_ms = cuda_ms(torch, lambda: ls._launch("tile", *args, True),
+                              20)
+            extra = {"tile_design_ms": tile_ms,
+                     "tile_design_max_abs_err": tile_err,
+                     "speedup_over_tile_design": tile_ms / ms}
         moved = nbytes(*args) + nw * s * w * 4
-        row = {"at": label, "shape": [nw, s, w, d],
-               "path": ls.auto_path(s, w), "max_abs_err": err, "ms": ms,
-               "plain_ms": plain_ms, "library_ms": library_ms,
-               "library": library, **bound(moved, 2.0 * nw * s * w * d)}
+        b = bound(moved, 2.0 * nw * s * w * d)
+        row = {"at": label, "shape": [nw, s, w, d], "design": design,
+               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "library_ms": library_ms, "library": library, **b,
+               "share_of_bound": b["bound_ms"] / ms, **extra}
         emit({"phase": "kernels", "kernel": "leader_score", **row})
         shapes.append(row)
         del args
         torch.cuda.empty_cache()
+    check(shapes[1]["design"] == "pipe",
+          f"leader_score: the prefilter call ran {shapes[1]['design']}")
     lsh = shapes[0]
     return {"name": "leader_score", "route": "cuda",
             "source": "src/repro_torch/csrc/leader_score.cu",
+            "designs": ["pipe", "tile", "rows"],
             "replaces": "src/repro/kernels/leader_score.py:44",
             "max_abs_err": max(r["max_abs_err"] for r in shapes),
             **{k: lsh[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
@@ -411,10 +461,15 @@ def check_simhash(torch, x, proj) -> None:
 
 
 # (n, d, m): the tests' shapes, m not a multiple of 32, d past one staged
-# chunk and not a multiple of it, and a row count past one block
+# chunk of 128 and not a multiple of it, d not a multiple of 4, and row
+# counts past one 128-row tile of the kernel and not a multiple of it, at
+# m = 8, 64 and 100 (two column groups of 64) and d = 128 and 512; the
+# last has more tiles than the card has blocks
 SIMHASH_SWEEP = [(8, 16, 32), (70, 40, 64), (128, 64, 128), (33, 7, 96),
                  (50, 16, 40), (129, 33, 40), (1, 5, 1), (1000, 128, 64),
-                 (300, 784, 100)]
+                 (300, 784, 100), (129, 128, 8), (1000, 128, 100),
+                 (777, 512, 64), (300, 512, 8), (2053, 512, 100),
+                 (20001, 128, 64)]
 
 
 def phase_simhash(torch) -> dict:
@@ -424,7 +479,7 @@ def phase_simhash(torch) -> dict:
     randn = lambda shape: torch.randn(shape, generator=gen, device="cuda")
     for n, d, m in SIMHASH_SWEEP:
         check_simhash(torch, randn((n, d)), randn((d, m)))
-    emit({"phase": "kernels", "kernel": "simhash_packed",
+    emit({"phase": "kernels", "kernel": "simhash_packed", "design": "dmma",
           "shapes": SIMHASH_SWEEP, "bit_equal": True})
     n, d, m = N_E2E, D_E2E, 64          # the prefilter sketch of 2**20 points
     x, proj = randn((n, d)), randn((d, m))
@@ -434,13 +489,16 @@ def phase_simhash(torch) -> dict:
     # the fp32 product alone, the most a library call does of it
     library_ms = cuda_ms(torch, lambda: torch.matmul(x, proj), 20)
     moved = nbytes(x, proj) + n * ((m + 31) // 32) * 4
+    b = bound(moved, 2.0 * n * d * m, FP64_FLOP_PER_S)
     row = {"name": "simhash_packed", "route": "cuda",
            "source": "src/repro_torch/csrc/simhash_packed.cu",
+           "designs": ["dmma"],
            "replaces": "src/repro/kernels/simhash.py:35",
            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
            "library_ms": library_ms,
-           **bound(moved, 2.0 * n * d * m, FP64_FLOP_PER_S)}
-    emit({"phase": "kernels", "kernel": "simhash_packed",
+           "library": "torch.matmul in fp32 (product only)", **b,
+           "share_of_bound": b["bound_ms"] / ms}
+    emit({"phase": "kernels", "kernel": "simhash_packed", "design": "dmma",
           "shape": [n, d, m], "bit_equal": True, **row})
     return row
 
@@ -588,6 +646,7 @@ def phase_flash_attention(torch) -> dict:
     local = shapes[1]
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention_wgmma.cu",
+            "designs": ["wgmma", "fma"],
             "sources_by_design": {
                 "wgmma": "src/repro_torch/csrc/flash_attention_wgmma.cu",
                 "fma": "src/repro_torch/csrc/flash_attention.cu"},
@@ -616,14 +675,21 @@ def kernel_modules():
 
 
 def reset_launches() -> None:
-    from repro_torch.kernels import flash_attention
     for mod in kernel_modules().values():
         mod.launches = 0
-    flash_attention.design_launches.update(wgmma=0, fma=0)
+        if hasattr(mod, "design_launches"):
+            mod.design_launches.update(dict.fromkeys(mod.design_launches, 0))
 
 
 def read_launches() -> dict:
-    return {name: mod.launches for name, mod in kernel_modules().items()}
+    """Launches by kernel, and by design as "<kernel>_by_design" for the
+    kernels that have several."""
+    out = {}
+    for name, mod in kernel_modules().items():
+        out[name] = mod.launches
+        if hasattr(mod, "design_launches"):
+            out[f"{name}_by_design"] = dict(mod.design_launches)
+    return out
 
 
 def exact_neighbours(torch, x, queries, k=10):
@@ -722,7 +788,10 @@ def phase_e2e_lsh(torch, x) -> dict:
     cfg = StarsConfig(family=HashFamilyConfig("simhash", m=16), **LSH_STARS)
     launches, builder = run_build(
         torch, "e2e_lsh", x, cfg,
-        {"leader_score": lambda c: c > 0, "topk_merge": lambda c: c > 0})
+        {"leader_score": lambda c: c > 0,
+         "leader_score_by_design": lambda c: c["rows"] > 0
+         and c["pipe"] == c["tile"] == 0,
+         "topk_merge": lambda c: c > 0})
     phase_profile(torch, "e2e_lsh", builder)
     del builder
     torch.cuda.empty_cache()
@@ -735,7 +804,10 @@ def phase_e2e_prefilter(torch, x) -> dict:
     launches, builder = run_build(
         torch, "e2e_prefilter", x[:N_PREFILTER], StarsConfig(**PREFILTER),
         {"simhash_packed": lambda c: c == 1,
-         "leader_score": lambda c: c > 0, "topk_merge": lambda c: c > 0})
+         "leader_score": lambda c: c == StarsConfig().r,
+         "leader_score_by_design": lambda c: c == {
+             "pipe": StarsConfig().r, "tile": 0, "rows": 0},
+         "topk_merge": lambda c: c > 0})
     phase_profile(torch, "e2e_prefilter", builder)
     del builder
     torch.cuda.empty_cache()
@@ -1037,9 +1109,12 @@ def main() -> int:
         k["launches"] = sum(c[k["name"]] for c in by_path.values())
         k["launches_by_path"] = {p: c[k["name"]] for p, c in by_path.items()}
         check(k["launches"] > 0, f"{k['name']} was never launched")
-    flash = next(k for k in kernels if k["name"] == "flash_attention")
-    flash["launches_by_design"] = \
-        by_path["lm_embed"]["flash_attention_by_design"]
+    for k in kernels:
+        by_design = [c[f"{k['name']}_by_design"] for c in by_path.values()
+                     if f"{k['name']}_by_design" in c]
+        if by_design:
+            k["launches_by_design"] = {
+                d: sum(c[d] for c in by_design) for d in by_design[0]}
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

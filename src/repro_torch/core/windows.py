@@ -83,7 +83,9 @@ def window_layout(mode: str, n: int, window: int,
         return 0, window_slot_count(mode, n, window)
     if mode != "sorting":
         raise ValueError(f"unknown mode {mode!r}")
-    r = int(prng.randint(shift_key, (), window // 2, window + 1))
+    # one host scalar: drawn on the CPU on purpose, whatever the device
+    r = int(prng.randint(shift_key, (), window // 2, window + 1,
+                         device="cpu"))
     return window - r, window_slot_count(mode, n, window)
 
 

@@ -2,8 +2,9 @@
 
 The Hopper counterpart of ``repro.kernels.simhash.simhash_packed``; it
 computes ``ref.simhash_packed_ref`` bit for bit (both sum the product in
-fp64).  This wrapper validates its inputs, allocates the output and
-launches on PyTorch's current stream without synchronising.
+fp64, the kernel on the fp64 tensor cores for every (n, d, m)).  This
+wrapper validates its inputs, allocates the output and launches on
+PyTorch's current stream without synchronising.
 """
 
 from __future__ import annotations

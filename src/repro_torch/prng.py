@@ -30,6 +30,8 @@ from typing import List, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.device import DeviceLike, resolve_device
+
 Key = Tuple[int, int]
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -80,9 +82,10 @@ def _numel(shape: Sequence[int]) -> int:
 
 
 def bits(k: Key, shape: Sequence[int], *,
-         device: Union[str, torch.device] = "cpu") -> torch.Tensor:
+         device: DeviceLike = None) -> torch.Tensor:
     """``jax.random.bits(k, shape, uint32)`` as int64 values in [0, 2**32)."""
     shape = tuple(shape)
+    device = resolve_device(device)
     count = torch.arange(_numel(shape), dtype=torch.int64, device=device)
     b0, b1 = _threefry2x32(k[0], k[1], count >> 32, count & _MASK)
     return (b0 ^ b1).reshape(shape)
@@ -90,10 +93,11 @@ def bits(k: Key, shape: Sequence[int], *,
 
 def uniform(k: Key, shape: Sequence[int], *, minval: float = 0.0,
             maxval: float = 1.0, dtype: torch.dtype = torch.float32,
-            device: Union[str, torch.device] = "cpu") -> torch.Tensor:
+            device: DeviceLike = None) -> torch.Tensor:
     """``jax.random.uniform`` in float32 or bfloat16: the top 23 bits of
     a draw fill a float32 mantissa; for bfloat16 JAX draws 8 bits (its
     mantissa has 7), so the top 7 of the draw's low byte fill it."""
+    device = resolve_device(device)
     b = bits(k, shape, device=device)
     if dtype == torch.float32:
         floats = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
@@ -109,7 +113,7 @@ def uniform(k: Key, shape: Sequence[int], *, minval: float = 0.0,
 
 
 def randint(k: Key, shape: Sequence[int], minval: int, maxval: int, *,
-            device: Union[str, torch.device] = "cpu") -> torch.Tensor:
+            device: DeviceLike = None) -> torch.Tensor:
     """``jax.random.randint`` for int32 bounds: two split draws reduced
     modulo the span with JAX's wrap-around uint32 arithmetic."""
     if not (-2**31 <= minval and maxval <= 2**31 - 1):
@@ -152,9 +156,10 @@ def erf_inv(x: torch.Tensor) -> torch.Tensor:
 
 
 def normal(k: Key, shape: Sequence[int], *,
-           device: Union[str, torch.device] = "cpu") -> torch.Tensor:
+           device: DeviceLike = None) -> torch.Tensor:
     """``jax.random.normal`` in float32: ``sqrt(2) * erfinv(u)`` with u
     uniform on [nextafter(-1, 0), 1)."""
+    device = resolve_device(device)
     lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
     u = uniform(k, shape, minval=lo, maxval=1.0, device=device)
     return torch.tensor(math.sqrt(2), dtype=torch.float32,

@@ -125,7 +125,8 @@ def test_lsh_window_grid_bit_equal(n, window, n_buckets, rep):
     tk = t_stars._rep_keys(tc, rep)
     j_tie = jax.random.bits(jk[0], (n,), jnp.uint32) \
         & jnp.uint32(((1 << 20) - 1) << 12)
-    t_tie = prng.bits(tk[0], (n,)) & (((1 << 20) - 1) << 12)
+    t_tie = prng.bits(tk[0], (n,), device="cpu") \
+        & (((1 << 20) - 1) << 12)
     jg = j_win.lsh_windows(jnp.asarray(bucket), window=window,
                            tiebreak=j_tie)
     tg = t_win.lsh_windows(_t(bucket), window=window, tiebreak=t_tie,

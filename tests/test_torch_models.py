@@ -329,7 +329,8 @@ def test_uniform_and_gumbel_noise_match_jax(dtype):
         else (torch.bfloat16, jnp.bfloat16)
     tiny = float(jnp.finfo(j_dt).tiny)
     key = prng.key(9)
-    u = prng.uniform(key, (4096,), minval=tiny, maxval=1.0, dtype=t_dt)
+    u = prng.uniform(key, (4096,), minval=tiny, maxval=1.0, dtype=t_dt,
+                     device="cpu")
     j_u = jax.random.uniform(jax.random.key(9), (4096,), j_dt, minval=tiny,
                              maxval=1.0)
     np.testing.assert_array_equal(u.float().numpy(),

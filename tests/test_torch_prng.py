@@ -41,10 +41,12 @@ def test_bits_and_uniform_bit_equal(seed, shape):
     k = jax.random.fold_in(jax.random.key(seed), 11)
     pk = prng.fold_in(prng.key(seed), 11)
     want = np.asarray(jax.random.bits(k, shape, jnp.uint32)).astype(np.int64)
-    np.testing.assert_array_equal(prng.bits(pk, shape).numpy(), want)
+    np.testing.assert_array_equal(
+        prng.bits(pk, shape, device="cpu").numpy(), want)
     u = np.asarray(jax.random.uniform(k, shape))
     np.testing.assert_array_equal(
-        prng.uniform(pk, shape).numpy().view(np.int32), u.view(np.int32))
+        prng.uniform(pk, shape, device="cpu").numpy().view(np.int32),
+        u.view(np.int32))
 
 
 @pytest.mark.parametrize("seed", SEEDS)
@@ -54,9 +56,9 @@ def test_randint_bit_equal(seed, lo, hi):
     k = jax.random.key(seed)
     pk = prng.key(seed)
     assert int(jax.random.randint(k, (), lo, hi)) \
-        == int(prng.randint(pk, (), lo, hi))
+        == int(prng.randint(pk, (), lo, hi, device="cpu"))
     np.testing.assert_array_equal(
-        prng.randint(pk, (257,), lo, hi).numpy(),
+        prng.randint(pk, (257,), lo, hi, device="cpu").numpy(),
         np.asarray(jax.random.randint(k, (257,), lo, hi)))
 
 
@@ -65,11 +67,26 @@ def test_normal_within_4_ulp(seed):
     k = jax.random.fold_in(jax.random.key(seed), 3)
     pk = prng.fold_in(prng.key(seed), 3)
     want = np.asarray(jax.random.normal(k, (128, 16)))
-    got = prng.normal(pk, (128, 16)).numpy()
+    got = prng.normal(pk, (128, 16), device="cpu").numpy()
     assert got.dtype == np.float32
     ulp = np.abs(got.view(np.int32).astype(np.int64)
                  - want.view(np.int32).astype(np.int64))
     assert ulp.max() <= 4, ulp.max()
+
+
+@pytest.mark.parametrize("draw", ["bits", "uniform", "randint", "normal"])
+def test_draws_resolve_their_device(monkeypatch, draw):
+    """With no device a draw goes to the card, and without one that
+    raises instead of drawing on the CPU; device="cpu" draws there."""
+    pk = prng.key(5)
+    call = {"bits": lambda **kw: prng.bits(pk, (3,), **kw),
+            "uniform": lambda **kw: prng.uniform(pk, (3,), **kw),
+            "randint": lambda **kw: prng.randint(pk, (3,), 0, 9, **kw),
+            "normal": lambda **kw: prng.normal(pk, (3,), **kw)}[draw]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        call()
+    assert call(device="cpu").device.type == "cpu"
 
 
 def test_erf_inv_edges():
