@@ -11,17 +11,21 @@ Phases, one JSON line each; any failed check exits non-zero:
   3. kernels: each kernel against its plain PyTorch version on the card, on
               a sweep of edge shapes and at the main paths' shapes, with
               its time there, the plain version's, a one-call library
-              yardstick where one exists, and its bound; flash_attention
-              in both its designs (tensor cores for bf16 at head dims 64,
-              128 and 256, fp32 FMA otherwise) and leader_score in its
-              three (pipe, tile, rows), each row naming the one that ran,
-              and the other design timed beside the path's at its shape
-              (flash_attention's FMA design, leader_score's tile design).
+              yardstick where one exists, and its bound; every design of
+              each kernel, each row naming the one that ran: window_score's
+              two (pipe, tile), leader_score's three (pipe, tile, rows),
+              flash_attention's
+              two (tensor cores for bf16 at head dims 64, 128 and 256, fp32
+              FMA otherwise); the other design timed beside the path's at
+              its shape.  topk_merge on accumulator-shaped rows, on random
+              rows and on rows that break its merge's preconditions (each
+              counted, and merged by its in-launch sort).
   4. e2e:     GraphBuilder(x, StarsConfig()).add_reps().finalize() at
               n = 2**20, d = 128 (clustered points made on the card from a
               seeded torch.Generator), with the kernels' launch counts over
-              that run and two-hop recall@10 against exact neighbours;
-              then one more repetition under torch.profiler.
+              that run (by design, and the rows that broke topk_merge's
+              preconditions: none) and two-hop recall@10 against exact
+              neighbours; then one more repetition under torch.profiler.
   5. e2e_lsh: LSH-Stars (Stars 1) on the same points: SimHash M = 16,
               bucket cap W = 10,000, r = 25.
   6. e2e_prefilter: the default SortingLSH build with the 64-bit Hamming
@@ -36,9 +40,10 @@ Phases, one JSON line each; any failed check exits non-zero:
   9. lm_parity: gemma3's reduced config in fp32 on CUDA and on the CPU:
               forward, embed_corpus and greedy generate agree.
  10. parity:  the default, LSH-Stars, LSH all-pairs and prefilter builds
-              at n = 20,000 on CUDA and on the CPU (plain versions);
-              comparisons equal, edge sets equal up to reported
-              slab-boundary near-ties.
+              at n = 20,000, and the default build without a degree cap
+              at n = 5,000 (merges of 9,998 entries a row), on CUDA and on
+              the CPU (plain versions); comparisons equal, edge sets equal
+              up to reported slab-boundary near-ties.
 
 The last lines are the kernels' summary, the card's name and power limit
 as nvidia-smi reports them, and the result line.  Without CUDA, or without
@@ -162,18 +167,29 @@ WINDOW_SCORE_VARIANTS = [
 ]
 
 
-def check_window_score(torch, args, variant) -> float:
+def check_window_score(torch, args, variant, design=None) -> tuple:
     """Hold the kernel against its plain version on one input; returns the
-    largest similarity difference."""
+    largest similarity difference and the design that ran.  Without
+    ``design`` the wrapper picks it (and its launch counts must agree with
+    its dispatch); with one, that design is launched directly."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import window_score as ws
     normalized, allpairs, match_bucket, new_from, refresh_below, r1 = variant
     kw = dict(normalized=normalized, allpairs=allpairs,
               match_bucket=match_bucket, new_from=new_from,
               refresh_below=refresh_below, r1=r1)
-    shape = tuple(args[0].shape) + (args[1].shape[1],)
-    what = f"window_score (nw, s, d, W)={shape} {variant}"
-    got = ws.window_score(*args, **kw)
+    nw, s, d = args[0].shape
+    w = args[1].shape[1]
+    ran = design or ws._design(s, w, d)
+    what = f"window_score (nw, s, d, W)={(nw, s, d, w)} {variant} " \
+        f"design={ran}"
+    if design is None:
+        before = dict(ws.design_launches)
+        got = ws.window_score(*args, **kw)
+        moved = [k for k, n in ws.design_launches.items() if n != before[k]]
+        check(moved == [ran], f"{what}: launched {moved}")
+    else:
+        got = ws._launch(design, *args, **kw)
     want = ref.window_score_ref(*args, **kw)
     torch.cuda.synchronize()
     sims, sims_ref = got[0], want[0]
@@ -194,53 +210,92 @@ def check_window_score(torch, args, variant) -> float:
               f"{what}: emit differs away from r1")
         check(int((got[3] - want[3]).abs().sum()) <= int(flips.sum()),
               f"{what}: emitted differs")
-    return err
+    return err, ran
 
 
 # Other (nw, s, W, d): the tests' shapes, s > 32 (several leader tiles, as
 # all-pairs scoring gives), d not a multiple of 4, the LSH all-pairs
 # parity build's W = 1,000 windows, and rows wider than one staged chunk
-# of 512 (the LM path's embeddings, d = 1,152; and d = 1,030)
+# of 512 (the LM path's embeddings, d = 1,152; and d = 1,030); then the
+# pipe design's edges: s = 16 x W = 16 (256 similarities), s = 33 / 40
+# (one row past a leader tile, a ragged second one) with W = 65 / 70
+# (one row past a member tile, a ragged one) at d = 4 and 32, and the
+# path's 25 x 250 at d = 256 and 512 (64-member items; one stage), on
+# more windows than the card has blocks
 WINDOW_SCORE_SWEEP = [(1, 4, 8, 16), (5, 8, 24, 16), (3, 25, 250, 64),
                       (2, 1, 16, 8), (6, 250, 250, 128), (4, 40, 100, 7),
                       (2, 33, 65, 33), (20, 1000, 1000, 128),
-                      (3, 25, 250, 1152), (2, 40, 70, 1030)]
+                      (3, 25, 250, 1152), (2, 40, 70, 1030),
+                      (9, 16, 16, 128), (70, 33, 65, 32), (41, 40, 70, 4),
+                      (300, 25, 250, 256), (150, 25, 250, 512)]
 
 
 def phase_window_score(torch) -> dict:
     from repro_torch.kernels import ref
     from repro_torch.kernels import window_score as ws
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    by_design = {}
     for nw, s, w, d in WINDOW_SCORE_SWEEP:
         args = window_score_inputs(torch, gen, nw, s, w, d)
-        err = max(check_window_score(torch, args, v)
-                  for v in WINDOW_SCORE_VARIANTS)
-        emit({"phase": "kernels", "kernel": "window_score",
-              "shape": [nw, s, w, d], "variants": len(WINDOW_SCORE_VARIANTS),
-              "max_abs_err": err})
+        # the wrapper's design, and the tile design beside the pipe design
+        designs = [None] + (["tile"] if ws._design(s, w, d) == "pipe"
+                            else [])
+        for design in designs:
+            errs, ran = [], None
+            for v in WINDOW_SCORE_VARIANTS:
+                err, ran = check_window_score(torch, args, v, design)
+                errs.append(err)
+            by_design.setdefault(ran, []).extend(errs)
+            emit({"phase": "kernels", "kernel": "window_score",
+                  "shape": [nw, s, w, d], "design": ran,
+                  "dispatched": design is None,
+                  "variants": len(WINDOW_SCORE_VARIANTS),
+                  "max_abs_err": max(errs)})
+    for design, errs in sorted(by_design.items()):
+        emit({"phase": "kernels", "kernel": "window_score", "design": design,
+              "cases": len(errs), "max_abs_err": max(errs)})
     nw, s, w, d = 4196, 25, 250, 128       # n = 2**20 at W = 250
     args = window_score_inputs(torch, gen, nw, s, w, d)
     max_err = 0.0
     for variant in WINDOW_SCORE_VARIANTS:
-        err = check_window_score(torch, args, variant)
+        err, ran = check_window_score(torch, args, variant)
+        tile_err, _ = check_window_score(torch, args, variant, "tile")
         max_err = max(max_err, err)
         emit({"phase": "kernels", "kernel": "window_score",
               "shape": [nw, s, w, d], "variant": list(variant),
-              "max_abs_err": err})
+              "design": ran, "max_abs_err": err,
+              "tile_design_max_abs_err": tile_err})
+    check(ran == "pipe", f"window_score: the path's call ran {ran}")
     kw = dict(normalized=True)
-    ms = cuda_ms(torch, lambda: ws.window_score(*args, **kw), 20)
+    # the two designs in alternating rounds on the same inputs
+    ms_runs, tile_runs = [], []
+    for rnd in range(2):
+        order = ("pipe", "tile") if rnd == 0 else ("tile", "pipe")
+        for design in order:
+            t = cuda_ms(torch, lambda: ws._launch(design, *args, **kw), 20)
+            (ms_runs if design == "pipe" else tile_runs).append(t)
+    ms, tile_ms = min(ms_runs), min(tile_runs)
     plain_ms = cuda_ms(torch, lambda: ref.window_score_ref(*args, **kw), 5)
     nrm = lambda t: t / torch.sqrt((t * t).sum(-1, keepdim=True) + 1e-12)
     la, mb = nrm(args[0]), nrm(args[1]).transpose(1, 2)
     library_ms = cuda_ms(torch, lambda: torch.bmm(la, mb), 20)
+    del la, mb
     out = ws.window_score(*args, **kw)
     moved = nbytes(*args) + nbytes(*out)
-    return {"name": "window_score", "route": "cuda",
-            "source": "src/repro_torch/csrc/window_score.cu",
-            "designs": ["tile"],
-            "replaces": "src/repro/kernels/window_score.py:97",
-            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, **bound(moved, 2.0 * nw * s * w * d)}
+    b = bound(moved, 2.0 * nw * s * w * d)
+    row = {"name": "window_score", "route": "cuda",
+           "source": "src/repro_torch/csrc/window_score.cu",
+           "designs": ["pipe", "tile"],
+           "replaces": "src/repro/kernels/window_score.py:97",
+           "max_abs_err": max_err, "ms": ms, "ms_rounds": ms_runs,
+           "tile_design_ms": tile_ms, "tile_design_ms_rounds": tile_runs,
+           "speedup_over_tile_design": tile_ms / ms, "plain_ms": plain_ms,
+           "library_ms": library_ms,
+           "library": "torch.bmm of the normalised tiles (product only)",
+           **b, "share_of_bound": b["bound_ms"] / ms}
+    emit({"phase": "kernels", "kernel": "window_score", "at": "path",
+          "shape": [nw, s, w, d], **row})
+    return row
 
 
 def topk_merge_inputs(torch, gen, n, k, kin):
@@ -260,22 +315,94 @@ def topk_merge_inputs(torch, gen, n, k, kin):
     return (*slab(k), *slab(kin))
 
 
-def check_topk_merge(torch, args) -> None:
-    """Hold the kernel against its plain version: bit-equal outputs."""
+def accumulator_rows(torch, gen, n, k, kin, live=None):
+    """Rows as the accumulator's traffic has them (the merge design's
+    preconditions): each input's live entries a prefix of its row,
+    strictly sorted by (f32 key of -w, nbr), no neighbour twice; with
+    cross-input duplicates (slab ids 2 j + c, incoming ids 3 j + c'),
+    exact weight ties (weights on a 1/64 grid, negative ones too), +0.0
+    and -0.0 weights, and empty tails of random length (``live``: the
+    share of each row that is live, else drawn per row, some rows full
+    and some empty)."""
+    from repro_torch.kernels.ref import f32_sort_key
+    rows = torch.arange(n, device="cuda")[:, None]
+    rand = lambda shape: torch.rand(shape, generator=gen, device="cuda")
+
+    def side(cols, mult):
+        j = torch.arange(cols, device="cuda")[None, :]
+        nbr = mult * j + rows % mult + (rows * 7) % 997
+        w = torch.randint(-16, 48, (n, cols), generator=gen,
+                          device="cuda").float() / 64
+        w = torch.where((w == 0) & (rand((n, cols)) < 0.5),
+                        torch.full_like(w, -0.0), w)
+        share = rand((n, 1)) * 1.2 if live is None else live
+        alive = rand((n, cols)) < share
+        # the key less 2**31, so that the shifted key keeps its sign
+        key = ((f32_sort_key(-w) - 2**31) << 32) | nbr
+        key = torch.where(alive, key, torch.full_like(key, 2**63 - 1))
+        order = key.argsort(dim=1)
+        nbr, w, alive = (t.gather(1, order) for t in (nbr, w, alive))
+        nbr = torch.where(alive, nbr, torch.full_like(nbr, -1))
+        w = torch.where(alive, w, torch.full_like(w, float("-inf")))
+        return nbr.to(torch.int32).contiguous(), w.contiguous()
+    return (*side(k, 2), *side(kin, 3))
+
+
+def broken_rows(torch, gen):
+    """Accumulator rows (all live) of which rows 0-5 break the merge
+    design's preconditions, one way each: two slab entries swapped, a slab
+    neighbour repeated, a live incoming entry after an empty slot, a NaN
+    weight, an exact slab tie in slab-first order (the larger id first,
+    as a JAX snapshot restored by from_host may hold), and an incoming
+    neighbour repeated.  Returns the rows and how many are broken."""
+    sn, sw, inn, iw = (t.clone() for t in
+                       accumulator_rows(torch, gen, 40, 24, 24, live=2.0))
+    sn[0, [0, 1]] = sn[0, [1, 0]]
+    sw[0, [0, 1]] = sw[0, [1, 0]]
+    sn[1, 1] = sn[1, 0]
+    inn[2, 3], iw[2, 3] = -1, float("-inf")
+    sw[3, 2] = float("nan")
+    sw[4, 0] = sw[4, 1]
+    lo, hi = sorted((int(sn[4, 0]), int(sn[4, 1])))
+    sn[4, 0], sn[4, 1] = hi, lo
+    inn[5, 2] = inn[5, 0]
+    return (sn, sw, inn, iw), 6
+
+
+def check_topk_merge(torch, args, violations=None) -> int:
+    """Hold the kernel against its plain version: bit-equal outputs.
+    Returns the rows it counted as breaking the merge's preconditions
+    (checked against ``violations`` when given)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import topk_merge as tm
     what = f"topk_merge (n, k, kin)={(*args[0].shape, args[2].shape[1])}"
+    counter = tm.violations("cuda")
+    counter.zero_()
     got = tm.topk_merge(*args)
     want = ref.topk_merge_ref(*args)
     torch.cuda.synchronize()
     check(torch.equal(got[0], want[0]), f"{what}: nbr differs")
     check(torch.equal(got[1].view(torch.int32), want[1].view(torch.int32)),
           f"{what}: weights differ")
+    bad = int(counter.item())
+    check(violations is None or bad == violations,
+          f"{what}: {bad} rows counted as breaking the preconditions, "
+          f"expected {violations}")
+    return bad
 
 
-# Other (n, k, kin): the tests' shapes and the largest row the kernel takes
+# Other (n, k, kin): the tests' shapes, one slot a row, odd k well above
+# kin (a warp's scratch not a multiple of 16 bytes before it was rounded
+# up), and rows past the 4,096 entries the first design took: 4,096 and
+# 4,097 entries, 9,998 (k = kin = 4,999: the uncapped build at n = 5,000),
+# 13,750 (the uncapped cap at n = 2**20, 25 x (250 + 25)), 24,000 (past
+# one block's shared memory: global scratch) and 70,000 (past 16-bit table
+# slots)
 TOPK_MERGE_SWEEP = [(1, 4, 4), (17, 8, 8), (64, 16, 8), (5, 3, 9),
-                    (33, 50, 50), (257, 1000, 3096)]
+                    (6, 1, 5), (9, 9, 1), (8, 17, 3), (33, 50, 50),
+                    (257, 1000, 3096), (9, 2048, 2048), (9, 2049, 2048),
+                    (7, 4999, 2000), (7, 4999, 4999), (5, 6875, 6875),
+                    (3, 12000, 12000), (2, 40000, 30000)]
 
 
 def phase_topk_merge(torch) -> dict:
@@ -283,26 +410,44 @@ def phase_topk_merge(torch) -> dict:
     from repro_torch.kernels import topk_merge as tm
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     for shape in TOPK_MERGE_SWEEP:
-        check_topk_merge(torch, topk_merge_inputs(torch, gen, *shape))
+        # accumulator-shaped rows merge with no violation; random rows
+        # break the order, so past 4,096 entries they pin the in-launch
+        # sort at those widths too
+        random_bad = check_topk_merge(
+            torch, topk_merge_inputs(torch, gen, *shape))
+        check(shape[1] + shape[2] <= 4096 or random_bad > 0,
+              f"topk_merge {shape}: no random row reached the sort")
+        check_topk_merge(torch, accumulator_rows(torch, gen, *shape), 0)
+        emit({"phase": "kernels", "kernel": "topk_merge", "shape": shape,
+              "bit_equal": True, "violations_random_rows": random_bad,
+              "violations_accumulator_rows": 0})
+    args, broken = broken_rows(torch, gen)
+    check_topk_merge(torch, args, broken)
     emit({"phase": "kernels", "kernel": "topk_merge",
-          "shapes": TOPK_MERGE_SWEEP, "bit_equal": True})
+          "broken_rows": broken, "violations_counted": broken,
+          "bit_equal": True})
     n, k, kin = 1 << 20, 250, 250
-    args = topk_merge_inputs(torch, gen, n, k, kin)
-    check_topk_merge(torch, args)
+    args = accumulator_rows(torch, gen, n, k, kin)
+    check_topk_merge(torch, args, 0)
     emit({"phase": "kernels", "kernel": "topk_merge",
-          "shape": [n, k, kin], "bit_equal": True})
+          "shape": [n, k, kin], "rows": "accumulator", "bit_equal": True})
     torch.cuda.empty_cache()
-    ms = cuda_ms(torch, lambda: tm.topk_merge(*args), 5)
+    rounds = [cuda_ms(torch, lambda: tm.topk_merge(*args), 20)
+              for _ in range(2)]
+    ms = min(rounds)
     plain_ms = cuda_ms(torch, lambda: ref.topk_merge_ref(*args), 2)
     moved = nbytes(*args) + nbytes(*tm.topk_merge(*args))
+    b = bound(moved, float(n) * (k + kin) * math.log2(k + kin))
     # no single PyTorch call dedups by neighbour and keeps the top k
-    return {"name": "topk_merge", "route": "cuda",
-            "source": "src/repro_torch/csrc/topk_merge.cu",
-            "designs": ["bitonic"],
-            "replaces": "src/repro/kernels/topk_merge.py:67",
-            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": None,
-            **bound(moved, float(n) * (k + kin) * math.log2(k + kin))}
+    row = {"name": "topk_merge", "route": "cuda",
+           "source": "src/repro_torch/csrc/topk_merge.cu",
+           "replaces": "src/repro/kernels/topk_merge.py:67",
+           "max_abs_err": 0.0, "ms": ms, "ms_rounds": rounds,
+           "plain_ms": plain_ms, "library_ms": None, **b,
+           "share_of_bound": b["bound_ms"] / ms}
+    emit({"phase": "kernels", "kernel": "topk_merge", "at": "path",
+          "shape": [n, k, kin], "rows": "accumulator", **row})
+    return row
 
 
 def leader_score_inputs(torch, gen, nw, s, w, d, masked=True):
@@ -675,21 +820,31 @@ def kernel_modules():
 
 
 def reset_launches() -> None:
+    from repro_torch.kernels import topk_merge
     for mod in kernel_modules().values():
         mod.launches = 0
         if hasattr(mod, "design_launches"):
             mod.design_launches.update(dict.fromkeys(mod.design_launches, 0))
+    topk_merge.violations("cuda").zero_()
 
 
 def read_launches() -> dict:
-    """Launches by kernel, and by design as "<kernel>_by_design" for the
-    kernels that have several."""
+    """Launches by kernel, by design as "<kernel>_by_design" for the
+    kernels that have several, and the rows that reached topk_merge
+    breaking its merge's preconditions."""
+    from repro_torch.kernels import topk_merge
     out = {}
     for name, mod in kernel_modules().items():
         out[name] = mod.launches
         if hasattr(mod, "design_launches"):
             out[f"{name}_by_design"] = dict(mod.design_launches)
+    out["topk_merge_violations"] = int(topk_merge.violations("cuda").item())
     return out
+
+
+# Every build path's merges: no row breaking the merge's preconditions
+MERGE_ONLY = {"topk_merge": lambda c: c > 0,
+              "topk_merge_violations": lambda c: c == 0}
 
 
 def exact_neighbours(torch, x, queries, k=10):
@@ -766,9 +921,12 @@ def run_build(torch, phase, x, cfg, need, extra=None):
 def phase_e2e(torch, x) -> dict:
     """The main path at n = 2**20; returns each kernel's launch count."""
     from repro_torch import StarsConfig
+    r = StarsConfig().r
     launches, builder = run_build(
         torch, "e2e", x, StarsConfig(),
-        {"window_score": lambda c: c > 0, "topk_merge": lambda c: c > 0})
+        {"window_score": lambda c: c == r,
+         "window_score_by_design": lambda c: c == {"pipe": r, "tile": 0},
+         **MERGE_ONLY})
     phase_profile(torch, "e2e", builder)
     del builder
     torch.cuda.empty_cache()
@@ -791,7 +949,7 @@ def phase_e2e_lsh(torch, x) -> dict:
         {"leader_score": lambda c: c > 0,
          "leader_score_by_design": lambda c: c["rows"] > 0
          and c["pipe"] == c["tile"] == 0,
-         "topk_merge": lambda c: c > 0})
+         **MERGE_ONLY})
     phase_profile(torch, "e2e_lsh", builder)
     del builder
     torch.cuda.empty_cache()
@@ -807,7 +965,7 @@ def phase_e2e_prefilter(torch, x) -> dict:
          "leader_score": lambda c: c == StarsConfig().r,
          "leader_score_by_design": lambda c: c == {
              "pipe": StarsConfig().r, "tile": 0, "rows": 0},
-         "topk_merge": lambda c: c > 0})
+         **MERGE_ONLY})
     phase_profile(torch, "e2e_prefilter", builder)
     del builder
     torch.cuda.empty_cache()
@@ -925,6 +1083,12 @@ def phase_lm_embed(torch, cfg, params):
     launches["flash_attention_by_design"] = designs
     for name in ("window_score", "topk_merge"):
         check(launches[name] > 0, f"lm_embed: {name} never launched")
+    check(launches["window_score_by_design"]["pipe"] == 0,
+          f"lm_embed: window_score at d = {cfg.d_model} launched "
+          f"{launches['window_score_by_design']}: all should be the tile "
+          "design")
+    for name, ok in MERGE_ONLY.items():
+        check(ok(launches[name]), f"lm_embed: {name} {launches[name]}")
     check(graph.num_edges > 0 and bool(np.isfinite(graph.w).all()),
           "lm_embed: empty or non-finite graph")
     pred = affinity_clustering(graph, target_clusters=LM_CLASSES)
@@ -1038,11 +1202,11 @@ def phase_lm(torch) -> dict:
     return launches
 
 
-def phase_parity(torch, name, cfg) -> None:
+def phase_parity(torch, name, cfg, n=20_000) -> None:
     from repro_torch import GraphBuilder
     from repro_torch.graph.accumulator import to_host
     from repro_torch.testing import compare_builds, slab_boundary
-    n, d = 20_000, 128
+    d = 128
     x = clustered_points(torch, n, d, classes=1000, spread=0.05,
                          seed=SEED + 3, device="cuda")
     builds = {}
@@ -1055,7 +1219,8 @@ def phase_parity(torch, name, cfg) -> None:
     (g_gpu, bound_gpu, s_gpu), (g_cpu, bound_cpu, s_cpu) = \
         builds["cuda"], builds["cpu"]
     diff = compare_builds(g_gpu, g_cpu, bound_gpu, bound_cpu)
-    emit({"phase": "parity", "config": name, "n": n, "cuda_seconds": s_gpu,
+    emit({"phase": "parity", "config": name, "n": n,
+          "slab_capacity": cfg.slab_capacity(n), "cuda_seconds": s_gpu,
           "cpu_seconds": s_cpu,
           "comparisons": [g_gpu.stats["comparisons"],
                           g_cpu.stats["comparisons"]],
@@ -1070,13 +1235,18 @@ def phase_parity(torch, name, cfg) -> None:
 
 
 def parity_configs():
+    """name -> (config, n): the four builds at n = 20,000, and the default
+    build without a degree cap at n = 5,000 (slabs of n - 1 = 4,999, so
+    the merges take rows of 9,998 entries)."""
     from repro_torch import HashFamilyConfig, StarsConfig
     m16 = HashFamilyConfig("simhash", m=16)
-    return {"default": StarsConfig(),
-            "lsh-stars": StarsConfig(family=m16, **LSH_STARS),
-            "lsh-allpairs": StarsConfig(mode="lsh", scoring="allpairs",
-                                        family=m16, window=1000, r=5),
-            "prefilter": StarsConfig(**PREFILTER)}
+    return {"default": (StarsConfig(), 20_000),
+            "lsh-stars": (StarsConfig(family=m16, **LSH_STARS), 20_000),
+            "lsh-allpairs": (StarsConfig(mode="lsh", scoring="allpairs",
+                                         family=m16, window=1000, r=5),
+                             20_000),
+            "prefilter": (StarsConfig(**PREFILTER), 20_000),
+            "uncapped": (StarsConfig(degree_cap=None), 5_000)}
 
 
 def main() -> int:
@@ -1103,8 +1273,8 @@ def main() -> int:
     del x
     torch.cuda.empty_cache()
     by_path["lm_embed"] = phase_lm(torch)
-    for name, cfg in parity_configs().items():
-        phase_parity(torch, name, cfg)
+    for name, (cfg, n) in parity_configs().items():
+        phase_parity(torch, name, cfg, n)
     for k in kernels:
         k["launches"] = sum(c[k["name"]] for c in by_path.values())
         k["launches_by_path"] = {p: c[k["name"]] for p, c in by_path.items()}

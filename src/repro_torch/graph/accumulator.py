@@ -200,7 +200,10 @@ def _fold_triples(state: EdgeAccumulator, node: torch.Tensor,
     inc_nbr.index_put_((rows, slots), nbr_f[sel].to(torch.int32))
     inc_w.index_put_((rows, slots), -negw_f[sel])
 
-    # 3) merge into the running slabs (CUDA kernel on the card)
+    # 3) merge into the running slabs (CUDA kernel on the card): both
+    #    inputs' rows are (-w, nbr)-sorted and deduplicated, the slab as a
+    #    merge output (or the empty start) and inc by steps 1 and 2, the
+    #    order in which the kernel merges without sorting
     new_nbr, new_w = kernel_ops.topk_merge(state.nbr, state.w, inc_nbr, inc_w)
     changed = ((new_nbr != state.nbr) | (new_w != state.w)).any(1)
     return EdgeAccumulator(nbr=new_nbr, w=new_w,
