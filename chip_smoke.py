@@ -30,20 +30,38 @@ Phases, one JSON line each; any failed check exits non-zero:
               bucket cap W = 10,000, r = 25.
   6. e2e_prefilter: the default SortingLSH build with the 64-bit Hamming
               prefilter (max distance 24), on the first 2**18 points.
-  7. lm_embed: gemma3-1b at full width and depth (random weights from a
+  7. e2e_session: the build session's lifecycle on the same points:
+              add_reps(25) on the first 7/8, checkpoint, extend by the
+              last 1/8 (25 rounds masked to new-vs-all pairs), refresh_reps
+              (2) (old-old pairs in a sampled quarter of the windows);
+              window_score's launches by mask (none / new / refresh) 25 /
+              25 / 2; the checkpoint restored into a second session (then
+              the same extend and refresh) against the live slabs.  Then
+              e2e_session_delta: the same lifecycle on the first 2**18
+              points, finalize(delta=True), and the delta replayed onto
+              the checkpoint against the live slabs (host numpy).
+  8. e2e_allpairs: the exact AllPair sweep (one topk_merge per block of
+              2,048 x 2,048 pairs) on the first 2**16 points: C(n, 2)
+              comparisons and two-hop recall@10 >= 0.999; then the default
+              Stars build on the same points for the comparison ratio.
+  9. lm_embed: gemma3-1b at full width and depth (random weights from a
               seeded torch.Generator) embeds 4,096 sequences of 2,048
               tokens with embed_corpus (every flash_attention launch on the
               tensor-core design), then the default Stars build over the
               embeddings and affinity clustering; one block profiled.
-  8. lm_generate: generate (greedy) for 8 prompts of 128 tokens on the
+ 10. lm_generate: generate (greedy) for 8 prompts of 128 tokens on the
               same model, and the decode steps' logits against forward's.
-  9. lm_parity: gemma3's reduced config in fp32 on CUDA and on the CPU:
+ 11. lm_parity: gemma3's reduced config in fp32 on CUDA and on the CPU:
               forward, embed_corpus and greedy generate agree.
- 10. parity:  the default, LSH-Stars, LSH all-pairs and prefilter builds
-              at n = 20,000, and the default build without a degree cap
-              at n = 5,000 (merges of 9,998 entries a row), on CUDA and on
-              the CPU (plain versions); comparisons equal, edge sets equal
-              up to reported slab-boundary near-ties.
+ 12. parity:  the default, LSH-Stars, LSH all-pairs and prefilter builds
+              at n = 20,000, the default build without a degree cap
+              (merges of 9,998 entries a row) and the exact AllPair sweep
+              at n = 5,000 (rebuilt on CUDA with TF32 allowed: the same
+              weight bits), and e2e_session's lifecycle on the default,
+              LSH-Stars and prefilter configs at n = 20,000 (with each
+              device's delta replay), on CUDA and on the CPU (plain
+              versions); stats equal, edge sets equal up to reported
+              slab-boundary near-ties.
 
 The last lines are the kernels' summary, the card's name and power limit
 as nvidia-smi reports them, and the result line.  Without CUDA, or without
@@ -819,25 +837,34 @@ def kernel_modules():
             "flash_attention": flash_attention}
 
 
+# per-kernel launch counts kept beside the total: by design, and (for
+# window_score) by the round mask the launch applied
+SPLITS = {"design_launches": "by_design", "mask_launches": "by_mask"}
+
+
 def reset_launches() -> None:
     from repro_torch.kernels import topk_merge
     for mod in kernel_modules().values():
         mod.launches = 0
-        if hasattr(mod, "design_launches"):
-            mod.design_launches.update(dict.fromkeys(mod.design_launches, 0))
+        for attr in SPLITS:
+            if hasattr(mod, attr):
+                counts = getattr(mod, attr)
+                counts.update(dict.fromkeys(counts, 0))
     topk_merge.violations("cuda").zero_()
 
 
 def read_launches() -> dict:
     """Launches by kernel, by design as "<kernel>_by_design" for the
-    kernels that have several, and the rows that reached topk_merge
-    breaking its merge's preconditions."""
+    kernels that have several, by round mask as "window_score_by_mask"
+    (none / new / refresh), and the rows that reached topk_merge breaking
+    its merge's preconditions."""
     from repro_torch.kernels import topk_merge
     out = {}
     for name, mod in kernel_modules().items():
         out[name] = mod.launches
-        if hasattr(mod, "design_launches"):
-            out[f"{name}_by_design"] = dict(mod.design_launches)
+        for attr, suffix in SPLITS.items():
+            if hasattr(mod, attr):
+                out[f"{name}_{suffix}"] = dict(getattr(mod, attr))
     out["topk_merge_violations"] = int(topk_merge.violations("cuda").item())
     return out
 
@@ -858,9 +885,10 @@ def exact_neighbours(torch, x, queries, k=10):
 
 def run_build(torch, phase, x, cfg, need, extra=None):
     """One path of the port: GraphBuilder(x, cfg).add_reps().finalize()
-    with every launch count set to 0 just before and read just after.
+    with every launch count set to 0 just before and read just after
+    (one round for the exact 'allpairs' source, cfg.r otherwise).
     ``need`` maps a kernel to a check on its count.  Returns the launch
-    counts and the builder (for a profile)."""
+    counts, the builder (for a profile) and the row it printed."""
     import numpy as np
     from repro_torch import GraphBuilder
     from repro_torch.graph.metrics import neighbor_recall
@@ -871,7 +899,7 @@ def run_build(torch, phase, x, cfg, need, extra=None):
     builder = GraphBuilder(x, cfg)
     rep_s = []
     t0 = time.perf_counter()
-    for _ in range(cfg.r):
+    for _ in range(1 if cfg.source_name == "allpairs" else cfg.r):
         t = time.perf_counter()
         builder.add_reps(1)
         torch.cuda.synchronize()
@@ -902,30 +930,35 @@ def run_build(torch, phase, x, cfg, need, extra=None):
                              k_cap=10)
     recall_s = time.perf_counter() - t
     check(0.0 < recall <= 1.0, f"{phase}: two-hop recall@10 {recall}")
-    emit({"phase": phase, "n": n, "d": d, "mode": cfg.mode,
-          "scoring": cfg.scoring, "m": cfg.family.m, "r": cfg.r,
+    row = {"phase": phase, "n": n, "d": d, "source": cfg.source_name,
+          "mode": cfg.mode, "scoring": cfg.scoring, "m": cfg.family.m,
+          "r": cfg.r,
           "window": cfg.window, "leaders": cfg.leaders,
           "degree_cap": cfg.degree_cap,
           "hamming_prefilter": [cfg.hamming_prefilter_bits,
                                 cfg.hamming_prefilter_max],
           "seconds_per_rep": rep_s, "reps_seconds": reps_s,
           "finalize_seconds": finalize_s, "recall_seconds": recall_s,
-          "comparisons": stats["comparisons"], "emitted": stats["emitted"],
-          "prefilter_ops": stats["prefilter_ops"],
+          "comparisons": stats["comparisons"],
+          "emitted": stats.get("emitted"),
+          "prefilter_ops": stats.get("prefilter_ops"),
           "edges": graph.num_edges, "launches": launches,
           "peak_device_bytes": peak, "two_hop_recall_at_10": recall,
-          **(extra or {})})
-    return launches, builder
+          **(extra or {})}
+    emit(row)
+    return launches, builder, row
 
 
 def phase_e2e(torch, x) -> dict:
     """The main path at n = 2**20; returns each kernel's launch count."""
     from repro_torch import StarsConfig
     r = StarsConfig().r
-    launches, builder = run_build(
+    launches, builder, _ = run_build(
         torch, "e2e", x, StarsConfig(),
         {"window_score": lambda c: c == r,
          "window_score_by_design": lambda c: c == {"pipe": r, "tile": 0},
+         "window_score_by_mask": lambda c: c == {"none": r, "new": 0,
+                                                 "refresh": 0},
          **MERGE_ONLY})
     phase_profile(torch, "e2e", builder)
     del builder
@@ -944,7 +977,7 @@ PREFILTER = dict(hamming_prefilter_bits=64, hamming_prefilter_max=24)
 def phase_e2e_lsh(torch, x) -> dict:
     from repro_torch import HashFamilyConfig, StarsConfig
     cfg = StarsConfig(family=HashFamilyConfig("simhash", m=16), **LSH_STARS)
-    launches, builder = run_build(
+    launches, builder, _ = run_build(
         torch, "e2e_lsh", x, cfg,
         {"leader_score": lambda c: c > 0,
          "leader_score_by_design": lambda c: c["rows"] > 0
@@ -959,7 +992,7 @@ def phase_e2e_lsh(torch, x) -> dict:
 def phase_e2e_prefilter(torch, x) -> dict:
     """The prefilter build on the first N_PREFILTER of the points."""
     from repro_torch import StarsConfig
-    launches, builder = run_build(
+    launches, builder, _ = run_build(
         torch, "e2e_prefilter", x[:N_PREFILTER], StarsConfig(**PREFILTER),
         {"simhash_packed": lambda c: c == 1,
          "leader_score": lambda c: c == StarsConfig().r,
@@ -967,6 +1000,237 @@ def phase_e2e_prefilter(torch, x) -> dict:
              "pipe": StarsConfig().r, "tile": 0, "rows": 0},
          **MERGE_ONLY})
     phase_profile(torch, "e2e_prefilter", builder)
+    del builder
+    torch.cuda.empty_cache()
+    return launches
+
+
+# e2e_session: the default build on the first 7/8 of the e2e points, then
+# an extend by the last 1/8 and two refresh rounds
+N_SESSION_BASE = N_E2E * 7 // 8
+SESSION_REFRESH_REPS = 2
+# e2e_session_delta: the same lifecycle on the first 2**18 points, then the
+# delta stream.  Its host numpy (the JAX package's algorithm, one sort of
+# all entries of the changed rows) grows with every row an insert touches:
+# at 2**20 it would take the script past its time limit
+N_SESSION_DELTA = 1 << 18
+# e2e_allpairs: the exact sweep on the first 2**16 e2e points
+N_ALLPAIRS = 1 << 16
+
+
+def tie_ordered(torch, nbr, w):
+    """The neighbours of slab rows with each run of equal weight bits put
+    in ascending order; every other position stays where it is."""
+    bits = w.view(torch.int32)
+    run = torch.zeros(nbr.shape, dtype=torch.int64, device=nbr.device)
+    run[:, 1:] = (bits[:, 1:] != bits[:, :-1]).cumsum(1)
+    key = (run << 32) | (nbr.to(torch.int64) & 0xFFFFFFFF)
+    return torch.sort(key, dim=1).values & 0xFFFFFFFF
+
+
+def check_replay(torch, what, replica, live) -> int:
+    """A replayed slab image against the live one: the weight bits equal
+    slot for slot, and the neighbours too except for their order within
+    a run of exactly equal weights (a replayed row keeps ties in arrival
+    order, the device orders them by neighbour id).  Returns how many
+    rows differed only by that order."""
+    r_nbr, r_w = (torch.as_tensor(a, device="cuda") for a in replica)
+    l_nbr, l_w = (torch.as_tensor(a, device="cuda") for a in live)
+    check(r_nbr.shape == l_nbr.shape, f"{what}: replayed image "
+          f"{tuple(r_nbr.shape)} vs live {tuple(l_nbr.shape)}")
+    bits = lambda t: t.view(torch.int32)
+    check(torch.equal(bits(r_w), bits(l_w)),
+          f"{what}: the replayed delta's weights differ from the live slabs")
+    check(torch.equal(tie_ordered(torch, r_nbr, r_w),
+                      tie_ordered(torch, l_nbr, l_w)),
+          f"{what}: the replayed delta's neighbours differ from the live "
+          f"slabs beyond the order of tied weights")
+    return int((r_nbr != l_nbr).any(1).sum())
+
+
+def session_steps(torch, builder, tail, r, progress=None):
+    """The lifecycle after the first add_reps: checkpoint, extend by
+    ``tail``, refresh; returns (checkpoint, seconds by step)."""
+    sync = torch.cuda.synchronize if tail.is_cuda else (lambda: None)
+    secs = {}
+    t = time.perf_counter()
+    ckpt = builder.checkpoint()
+    secs["checkpoint"] = time.perf_counter() - t
+    t = time.perf_counter()
+    builder.extend(tail, reps=r, progress=progress)
+    sync()
+    secs["extend"] = time.perf_counter() - t
+    t = time.perf_counter()
+    builder.refresh_reps(SESSION_REFRESH_REPS, progress=progress)
+    sync()
+    secs["refresh"] = time.perf_counter() - t
+    return ckpt, secs
+
+
+def check_session(what, builder, launches, r) -> None:
+    """A lifecycle of r add, r extend and SESSION_REFRESH_REPS refresh
+    rounds: window_score launched once a round with the round's mask, all
+    on the pipe design, one topk_merge a round with no violation."""
+    rounds = 2 * r + SESSION_REFRESH_REPS
+    for name, ok in {
+            "window_score": lambda c: c == rounds,
+            "window_score_by_mask": lambda c: c == {
+                "none": r, "new": r, "refresh": SESSION_REFRESH_REPS},
+            "window_score_by_design": lambda c: c == {"pipe": rounds,
+                                                      "tile": 0},
+            "topk_merge": lambda c: c == rounds,
+            "topk_merge_violations": lambda c: c == 0}.items():
+        check(ok(launches[name]),
+              f"{what}: {name} launched {launches[name]}: {launches}")
+    stats = builder.stats
+    check(stats["reps"] == rounds and
+          stats["refresh_reps"] == SESSION_REFRESH_REPS,
+          f"{what}: rounds {stats}")
+    check(0 < stats["refresh_comparisons"], f"{what}: refresh scored "
+          "nothing")
+
+
+def phase_e2e_session(torch, x) -> dict:
+    """The build session's lifecycle at n = 2**20: add_reps on 7/8 of the
+    points, checkpoint, extend by the rest and refresh_reps(2); then the
+    checkpoint restored into a second session that runs the same rounds,
+    held bit for bit against the live slabs.  Returns the launch counts
+    of the lifecycle."""
+    from repro_torch import GraphBuilder, StarsConfig
+    cfg = StarsConfig()
+    r = cfg.r
+    head, tail = x[:N_SESSION_BASE], x[N_SESSION_BASE:]
+    ends = []
+
+    def tick(_):
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    builder = GraphBuilder(head, cfg)
+    builder.add_reps(r, progress=tick)
+    base = builder.stats
+    ckpt, secs = session_steps(torch, builder, tail, r, progress=tick)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    check_session("e2e_session", builder, launches, r)
+    stats = builder.stats
+    # round times: the add_reps, extend and refresh rounds in order (the
+    # checkpoint lies between the add and the extend rounds)
+    starts = [t0] + ends[:-1]
+    starts[r] = ends[r - 1] + secs["checkpoint"]
+    per_round = [e - b for b, e in zip(starts, ends)]
+    ext_comparisons = stats["comparisons"] - base["comparisons"] \
+        - stats["refresh_comparisons"]
+    # the checkpoint restored into a second session on the card, then the
+    # same extend and refresh: the same slabs, bit for bit
+    t = time.perf_counter()
+    resumed = GraphBuilder.restore(head, cfg, ckpt)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t
+    resumed.extend(tail, reps=r)
+    resumed.refresh_reps(SESSION_REFRESH_REPS)
+    a, b = builder.slab_state(), resumed.slab_state()
+    check(torch.equal(a.nbr, b.nbr) and torch.equal(a.w, b.w),
+          "e2e_session: the restored session's slabs differ")
+    check(resumed.stats == stats, "e2e_session: the restored session's "
+          "stats differ")
+    emit({"phase": "e2e_session", "n": N_E2E, "n_base": N_SESSION_BASE,
+          "d": x.shape[1], "r": r, "refresh_reps": SESSION_REFRESH_REPS,
+          "refresh_fraction": cfg.refresh_fraction,
+          "seconds_per_round": per_round,
+          "seconds_per_rep": {
+              "add": sum(per_round[:r]) / r,
+              "extend": sum(per_round[r:2 * r]) / r,
+              "refresh": sum(per_round[2 * r:]) / SESSION_REFRESH_REPS},
+          "comparisons_add": base["comparisons"],
+          "comparisons_extend": ext_comparisons,
+          "extend_share_of_a_full_rep":
+              ext_comparisons / r / (base["comparisons"] / r),
+          "refresh_comparisons": stats["refresh_comparisons"],
+          "checkpoint_bytes": int(ckpt.nbr.nbytes + ckpt.w.nbytes
+                                  + ckpt.ver.nbytes),
+          "checkpoint_seconds": secs["checkpoint"],
+          "extend_seconds": secs["extend"],
+          "refresh_seconds": secs["refresh"],
+          "restore_seconds": restore_s,
+          "restored_slabs_equal": True, "launches": launches,
+          "peak_device_bytes": peak})
+    del builder, resumed, ckpt, a, b
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_e2e_session_delta(torch, x) -> dict:
+    """e2e_session's lifecycle on the first N_SESSION_DELTA points, then
+    finalize(delta=True): the delta since the checkpoint, replayed onto
+    its image (host numpy), against the live slabs.  Returns the launch
+    counts of the lifecycle."""
+    from repro_torch import GraphBuilder, StarsConfig
+    from repro_torch.graph import accumulator as acc
+    from repro_torch.service.delta import apply_delta
+    cfg = StarsConfig()
+    r = cfg.r
+    n = N_SESSION_DELTA
+    n0 = n * 7 // 8
+    torch.cuda.synchronize()
+    acc.reset_transfer_stats()
+    reset_launches()
+    builder = GraphBuilder(x[:n0], cfg).add_reps(r)
+    ckpt, _ = session_steps(torch, builder, x[n0:n], r)
+    t = time.perf_counter()
+    delta = builder.finalize(delta=True)
+    delta_s = time.perf_counter() - t
+    launches = read_launches()
+    check_session("e2e_session_delta", builder, launches, r)
+    t = time.perf_counter()
+    live = acc.to_host(builder.slab_state())[:2]
+    fetch_s = time.perf_counter() - t
+    t = time.perf_counter()
+    replica = apply_delta(ckpt.nbr, ckpt.w, delta)
+    apply_s = time.perf_counter() - t
+    tie_rows = check_replay(torch, "e2e_session_delta", replica, live)
+    emit({"phase": "e2e_session_delta", "n": n, "n_base": n0,
+          "d": x.shape[1], "r": r, "refresh_reps": SESSION_REFRESH_REPS,
+          "delta_seconds": delta_s, "delta_rows": delta.rows.shape[0],
+          "delta_records": delta.num_records, "delta_bytes": delta.nbytes,
+          "delta_fetch_bytes": acc.transfer_stats["delta_bytes"],
+          "apply_delta_seconds": apply_s, "slab_fetch_seconds": fetch_s,
+          "replayed_rows_tie_ordered": tie_rows, "launches": launches})
+    del builder, ckpt, delta, live, replica
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_e2e_allpairs(torch, x) -> dict:
+    """The exact AllPair sweep on the first N_ALLPAIRS points (one
+    topk_merge a block), and the default Stars build on the same points
+    for the paper's comparison ratio."""
+    from repro_torch import StarsConfig
+    n = N_ALLPAIRS
+    cfg = StarsConfig(source="allpairs", degree_cap=250)
+    blocks = -(-n // cfg.allpairs_block)
+    launches, builder, row = run_build(
+        torch, "e2e_allpairs", x[:n], cfg,
+        {"topk_merge": lambda c: c == blocks * (blocks + 1) // 2,
+         "topk_merge_violations": lambda c: c == 0,
+         "window_score": lambda c: c == 0, "leader_score": lambda c: c == 0})
+    check(row["comparisons"] == n * (n - 1) // 2,
+          f"e2e_allpairs: {row['comparisons']} comparisons")
+    check(row["two_hop_recall_at_10"] >= 0.999,
+          f"e2e_allpairs: two-hop recall@10 {row['two_hop_recall_at_10']}")
+    del builder
+    stars_launches, builder, stars = run_build(
+        torch, "e2e_allpairs_stars", x[:n], StarsConfig(), MERGE_ONLY)
+    emit({"phase": "e2e_allpairs", "n": n, "blocks": blocks * (blocks + 1)
+          // 2, "comparisons_allpairs": row["comparisons"],
+          "comparisons_stars": stars["comparisons"],
+          "comparison_ratio": row["comparisons"] / stars["comparisons"],
+          "recall_allpairs": row["two_hop_recall_at_10"],
+          "recall_stars": stars["two_hop_recall_at_10"]})
     del builder
     torch.cuda.empty_cache()
     return launches
@@ -1202,30 +1466,65 @@ def phase_lm(torch) -> dict:
     return launches
 
 
-def phase_parity(torch, name, cfg, n=20_000) -> None:
+def phase_parity(torch, name, cfg, n=20_000, session=False) -> None:
+    """One config built on CUDA and on the CPU from the same points: the
+    stats equal, the edges equal up to slab-boundary near-ties.  With
+    ``session`` the build is the lifecycle of e2e_session on 7/8 and 1/8
+    of the points, and each device's delta replays onto its checkpoint.
+    The exact 'allpairs' sweep is also rebuilt on CUDA with TF32 allowed,
+    to the same weight bits."""
+    import numpy as np
     from repro_torch import GraphBuilder
     from repro_torch.graph.accumulator import to_host
+    from repro_torch.service.delta import apply_delta
     from repro_torch.testing import compare_builds, slab_boundary
     d = 128
     x = clustered_points(torch, n, d, classes=1000, spread=0.05,
                          seed=SEED + 3, device="cuda")
-    builds = {}
+    n0 = n * 7 // 8 if session else n
+    builds, tie_rows = {}, {}
     for device in ("cuda", "cpu"):
+        xd = x.to(device)
         t = time.perf_counter()
-        b = GraphBuilder(x.to(device), cfg, device=device).add_reps()
+        b = GraphBuilder(xd[:n0], cfg, device=device).add_reps()
+        if session:
+            ckpt, _ = session_steps(torch, b, xd[n0:], cfg.r)
         g = b.finalize()
-        builds[device] = (g, slab_boundary(*to_host(b.slab_state())[:2]),
-                          time.perf_counter() - t)
+        slabs = to_host(b.slab_state())[:2]
+        if session:
+            tie_rows[device] = check_replay(
+                torch, f"{name} ({device})",
+                apply_delta(ckpt.nbr, ckpt.w, b.finalize(delta=True)), slabs)
+        builds[device] = (g, slab_boundary(*slabs), time.perf_counter() - t)
     (g_gpu, bound_gpu, s_gpu), (g_cpu, bound_cpu, s_cpu) = \
         builds["cuda"], builds["cpu"]
+    extra = {}
+    if cfg.source_name == "allpairs":
+        # the sweep's products stay IEEE fp32 in a process that allows
+        # TF32 (its weights would lose 13 mantissa bits otherwise)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            b = GraphBuilder(x, cfg, device="cuda").add_reps()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        tf32 = b.finalize()
+        check(np.array_equal(tf32.src, g_gpu.src)
+              and np.array_equal(tf32.dst, g_gpu.dst)
+              and np.array_equal(tf32.w.view(np.int32),
+                                 g_gpu.w.view(np.int32)),
+              f"{name}: the sweep's weights change when TF32 is allowed")
+        extra["tf32_allowed_equal"] = True
     diff = compare_builds(g_gpu, g_cpu, bound_gpu, bound_cpu)
     emit({"phase": "parity", "config": name, "n": n,
+          **({"n_base": n0, "refresh_reps": g_gpu.stats["refresh_reps"],
+              "replayed_rows_tie_ordered": tie_rows} if session else {}),
           "slab_capacity": cfg.slab_capacity(n), "cuda_seconds": s_gpu,
           "cpu_seconds": s_cpu,
           "comparisons": [g_gpu.stats["comparisons"],
                           g_cpu.stats["comparisons"]],
-          "prefilter_ops": [g_gpu.stats["prefilter_ops"],
-                            g_cpu.stats["prefilter_ops"]], **diff})
+          "prefilter_ops": [g_gpu.stats.get("prefilter_ops"),
+                            g_cpu.stats.get("prefilter_ops")], **extra,
+          **diff})
     check(g_gpu.stats == g_cpu.stats,
           f"{name}: stats differ between CUDA and CPU builds")
     check(diff["unexplained"] == 0,
@@ -1235,9 +1534,10 @@ def phase_parity(torch, name, cfg, n=20_000) -> None:
 
 
 def parity_configs():
-    """name -> (config, n): the four builds at n = 20,000, and the default
+    """name -> (config, n): the four builds at n = 20,000, the default
     build without a degree cap at n = 5,000 (slabs of n - 1 = 4,999, so
-    the merges take rows of 9,998 entries)."""
+    the merges take rows of 9,998 entries), and the exact AllPair sweep
+    at n = 5,000."""
     from repro_torch import HashFamilyConfig, StarsConfig
     m16 = HashFamilyConfig("simhash", m=16)
     return {"default": (StarsConfig(), 20_000),
@@ -1246,7 +1546,19 @@ def parity_configs():
                                          family=m16, window=1000, r=5),
                              20_000),
             "prefilter": (StarsConfig(**PREFILTER), 20_000),
-            "uncapped": (StarsConfig(degree_cap=None), 5_000)}
+            "uncapped": (StarsConfig(degree_cap=None), 5_000),
+            "allpairs": (StarsConfig(source="allpairs"), 5_000)}
+
+
+def session_parity_configs():
+    """name -> (config, n): the lifecycle of e2e_session at n = 20,000 on
+    the default, LSH-Stars and prefilter configs."""
+    from repro_torch import HashFamilyConfig, StarsConfig
+    m16 = HashFamilyConfig("simhash", m=16)
+    return {"session": (StarsConfig(), 20_000),
+            "session-lsh-stars": (StarsConfig(family=m16, **LSH_STARS),
+                                  20_000),
+            "session-prefilter": (StarsConfig(**PREFILTER), 20_000)}
 
 
 def main() -> int:
@@ -1269,22 +1581,28 @@ def main() -> int:
                          seed=SEED, device="cuda")
     by_path = {"e2e": phase_e2e(torch, x),
                "e2e_lsh": phase_e2e_lsh(torch, x),
-               "e2e_prefilter": phase_e2e_prefilter(torch, x)}
+               "e2e_prefilter": phase_e2e_prefilter(torch, x),
+               "e2e_session": phase_e2e_session(torch, x),
+               "e2e_session_delta": phase_e2e_session_delta(torch, x),
+               "e2e_allpairs": phase_e2e_allpairs(torch, x)}
     del x
     torch.cuda.empty_cache()
     by_path["lm_embed"] = phase_lm(torch)
     for name, (cfg, n) in parity_configs().items():
         phase_parity(torch, name, cfg, n)
+    for name, (cfg, n) in session_parity_configs().items():
+        phase_parity(torch, name, cfg, n, session=True)
     for k in kernels:
         k["launches"] = sum(c[k["name"]] for c in by_path.values())
         k["launches_by_path"] = {p: c[k["name"]] for p, c in by_path.items()}
         check(k["launches"] > 0, f"{k['name']} was never launched")
     for k in kernels:
-        by_design = [c[f"{k['name']}_by_design"] for c in by_path.values()
-                     if f"{k['name']}_by_design" in c]
-        if by_design:
-            k["launches_by_design"] = {
-                d: sum(c[d] for c in by_design) for d in by_design[0]}
+        for suffix in SPLITS.values():
+            split = [c[f"{k['name']}_{suffix}"] for c in by_path.values()
+                     if f"{k['name']}_{suffix}" in c]
+            if split:
+                k[f"launches_{suffix}"] = {
+                    d: sum(c[d] for c in split) for d in split[0]}
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -2,37 +2,55 @@
 
     builder = GraphBuilder(features, StarsConfig())   # on the card
     builder.add_reps(cfg.r)                           # run repetitions
+    builder.extend(new_points, reps=cfg.r)            # insert points, score
+                                                      #   new-vs-all only
+    builder.refresh_reps(2)                           # rescore a sample of
+                                                      #   old-old windows
+    ckpt = builder.checkpoint()                       # slabs + counters
+    builder = GraphBuilder.restore(feats, cfg, ckpt)  #   -> host and back
     graph = builder.finalize()                        # THE device->host fetch
+    delta = builder.finalize(delta=True)              # or only what changed
 
-The degree slabs live on the session's device; each repetition folds its
-candidate stream into them, and ``finalize`` fetches them once and compacts
-them into a :class:`Graph`.  The session runs on CUDA unless the caller
+The degree slabs live on the session's device; each round folds its
+candidate stream into them.  The session runs on CUDA unless the caller
 passes ``device="cpu"``, where every kernel runs as its plain version.
 
-Ported so far: the single-device backend with the windowed LSH and
-SortingLSH sources (Stars and all-pairs scoring, with or without the
-Hamming prefilter), ``add_reps``, ``finalize`` and ``stats``.
-``extend`` / ``refresh_reps``, checkpoints, delta finalize, the
-brute-force 'allpairs' source, paged feature stores, the pair-score cache
-and the mesh come in later slices; configs that need them raise
+Candidate sources: the windowed LSH / SortingLSH repetitions of
+``core/stars.py`` (Stars and all-pairs scoring, with or without the
+Hamming prefilter) and the exact blocked 'allpairs' sweep (the paper's
+AllPair baseline).  Extension rounds score only pairs that touch a new
+point; refresh rounds rescore old-old pairs in a sampled set of windows,
+weighted by how long a window went unsampled (a host age ledger that
+replays the device's draw).  Checkpoints are full slab images or chains
+of :class:`repro_torch.service.delta.SlabDelta` records.
+
+Not ported yet: paged feature stores, the pair-score cache, learned and
+set measures, the mesh and ``cluster``; configs that need them raise
 ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
+from repro_torch import prng
+from repro_torch.core import windows as win_lib
 from repro_torch.core.spanner import Graph
 from repro_torch.core.stars import (StarsConfig, _prefilter_sketch,
-                                    _rep_candidates)
+                                    _rep_candidates, _rep_keys)
 from repro_torch.device import DeviceLike, as_tensor, resolve_device
 from repro_torch.graph import accumulator as acc_lib
+from repro_torch.service.delta import SlabDelta, diff_rows, replay_chain
 from repro_torch.similarity.measures import PointFeatures
 
 _COUNTERS = ("comparisons", "emitted", "prefilter_ops", "scored_windows")
+
+Progress = Optional[Callable[[int], None]]
 
 
 class RepetitionSource:
@@ -41,23 +59,106 @@ class RepetitionSource:
     One round is one repetition: sketch with a fresh hash draw, sort and
     window, score the leader tiles and fold the masked candidate stream
     into the slabs.  The prefilter's packed sketch is computed once per
-    bind, as in the JAX package.
+    bind, over all points, as in the JAX package.
     """
 
     def __init__(self, cfg: StarsConfig):
         self.cfg = cfg
 
-    def bind(self, features: PointFeatures) -> Callable:
+    def bind(self, features: PointFeatures, new_from: int,
+             refresh_below: int = 0,
+             refresh_fraction: float = 1.0) -> Callable:
         cfg = self.cfg
         prefilter = (
             _prefilter_sketch(features, cfg.hamming_prefilter_bits, cfg.seed)
             if cfg.hamming_prefilter_bits > 0 else None)
 
-        def round_step(state: acc_lib.EdgeAccumulator, rep_index: int):
-            out = _rep_candidates(cfg, features, prefilter, rep_index)
+        def round_step(state: acc_lib.EdgeAccumulator, rep_index: int,
+                       probs: Optional[np.ndarray] = None):
+            out = _rep_candidates(cfg, features, prefilter, rep_index,
+                                  new_from=new_from,
+                                  refresh_below=refresh_below,
+                                  refresh_fraction=refresh_fraction,
+                                  refresh_probs=probs)
             state = acc_lib.accumulate(state, out["src"], out["dst"],
                                        out["w"], out["emit"])
             return state, {k: out[k] for k in _COUNTERS}
+
+        return round_step
+
+
+def _normalize(x: torch.Tensor) -> torch.Tensor:
+    """Rows over sqrt(sum x^2 + 1e-12), the JAX package's cosine rows."""
+    return x / torch.sqrt((x * x).sum(-1, keepdim=True) + 1e-12)
+
+
+@contextlib.contextmanager
+def _ieee_fp32_matmul():
+    """fp32 matmuls in IEEE single precision inside the block, whatever
+    the process set (TF32 would round the products to a 10-bit mantissa);
+    the setting is restored after."""
+    prior = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prior)
+
+
+class AllPairsSource:
+    """The exact *AllPair* sweep: all n (n - 1) / 2 pairs, in blocks.
+
+    One round is one sweep over (block x block) tiles a0 <= b0, each
+    scored by one ``torch.matmul`` of the (normalised) rows in fp32, as
+    the JAX package computes it outside any kernel (never TF32, whatever
+    the process's matmul precision), and folded into the slabs by
+    ``accumulate`` (so through ``topk_merge``) at once.  On an extension
+    round only tiles that touch a new point are visited and the pair mask
+    keeps new-vs-all pairs: C(n, 2) - C(n_old, 2) comparisons.
+    """
+
+    def __init__(self, cfg: StarsConfig):
+        self.cfg = cfg
+
+    def bind(self, features: PointFeatures, new_from: int,
+             refresh_below: int = 0,
+             refresh_fraction: float = 1.0) -> Callable:
+        if refresh_below > 0:
+            raise ValueError("the exact 'allpairs' source has no sampling "
+                             "staleness to refresh")
+        cfg = self.cfg
+        n = features.n
+        block = min(cfg.allpairs_block, max(n, 1))
+        dense = features.dense
+        dev = dense.device
+        span = torch.arange(block, dtype=torch.int64, device=dev)
+        rows = _normalize if cfg.measure == "cosine" else (lambda x: x)
+
+        def block_step(state, a0: int, b0: int):
+            ids_a, ids_b = a0 + span, b0 + span
+            fa = rows(dense[ids_a.clamp_max(n - 1)])
+            fb = rows(dense[ids_b.clamp_max(n - 1)])
+            with _ieee_fp32_matmul():
+                sims = torch.matmul(fa, fb.T)
+            keep = (ids_a[:, None] < ids_b[None, :]) & (ids_b[None, :] < n)
+            if new_from > 0:
+                keep &= ids_b[None, :] >= new_from   # the new side
+            if cfg.r1 is not None:
+                keep &= sims > torch.tensor(cfg.r1, dtype=torch.float32,
+                                            device=dev)
+            aa = ids_a[:, None].expand(block, block)
+            bb = ids_b[None, :].expand(block, block)
+            return acc_lib.accumulate(state, aa, bb, sims, keep)
+
+        def round_step(state, rep_index: int, probs=None):
+            del rep_index, probs                     # the sweep is exact
+            for a0 in range(0, n, block):
+                for b0 in range(a0, n, block):
+                    if new_from > 0 and b0 + block <= new_from:
+                        continue                     # both endpoints old
+                    state = block_step(state, a0, b0)
+            comps = n * (n - 1) // 2 - new_from * (new_from - 1) // 2
+            return state, {"comparisons": comps}
 
         return round_step
 
@@ -67,20 +168,23 @@ CANDIDATE_SOURCES: Dict[str, Callable] = {
     "lsh-allpairs": RepetitionSource,
     "sorting-stars": RepetitionSource,
     "sorting-allpairs": RepetitionSource,
+    "allpairs": AllPairsSource,
 }
 
 
 class _SingleDeviceBackend:
-    """Feature table and slab state on one device."""
+    """The dense feature table and the slab state on one device."""
 
     def __init__(self, features: PointFeatures, cfg: StarsConfig):
         name = cfg.source_name
         if name not in CANDIDATE_SOURCES:
-            raise NotImplementedError(
-                f"candidate source {name!r} is not ported yet; ported: "
-                f"{sorted(CANDIDATE_SOURCES)}")
+            raise ValueError(f"unknown candidate source {name!r}; "
+                             f"known: {sorted(CANDIDATE_SOURCES)}")
         self.features = features
-        self._round = CANDIDATE_SOURCES[name](cfg).bind(features)
+        self.source = CANDIDATE_SOURCES[name](cfg)
+        # (new_from, refresh_below, refresh_fraction) -> bound round;
+        # cleared by extend() (the table changed)
+        self._bound: Dict = {}
 
     @property
     def n(self) -> int:
@@ -93,14 +197,32 @@ class _SingleDeviceBackend:
     def grow_state(self, state, n: int, capacity: int):
         return acc_lib.grow(state, n, capacity)
 
-    def run_round(self, state, rep_index: int):
-        return self._round(state, rep_index)
+    def run_round(self, state, rep_index: int, new_from: int,
+                  refresh_below: int = 0, refresh_fraction: float = 1.0,
+                  refresh_probs: Optional[np.ndarray] = None):
+        key = (new_from, refresh_below, refresh_fraction)
+        if key not in self._bound:
+            self._bound[key] = self.source.bind(
+                self.features, new_from, refresh_below, refresh_fraction)
+        return self._bound[key](state, rep_index, refresh_probs)
+
+    def extend(self, dense: torch.Tensor) -> None:
+        """Append rows to the table on its device (the resident store's
+        ``append``); the rows keep their dtype."""
+        self.features = PointFeatures(
+            dense=torch.cat([self.features.dense, dense]).contiguous())
+        self._bound = {}
+
+
+def _refresh_window_count(cfg: StarsConfig, n: int) -> int:
+    """Window rows of the current grid: the length of the refresh keep
+    probabilities and of the host's refresh-age ledger."""
+    return win_lib.window_slot_count(cfg.mode, n, cfg.window) // cfg.window
 
 
 def _check_ported(cfg: StarsConfig) -> None:
     """Reject configs whose paths this port does not run yet, up front."""
     unported = {
-        "refresh_rate": (cfg.refresh_rate, 0.0),
         "feature_store": (cfg.feature_store, "resident"),
         "pair_cache_slots": (cfg.pair_cache_slots, 0),
     }
@@ -117,6 +239,46 @@ def _check_ported(cfg: StarsConfig) -> None:
         raise NotImplementedError(
             f"hash family {cfg.family.kind!r} is not ported yet (only "
             "'simhash')")
+
+
+@dataclasses.dataclass
+class BuilderCheckpoint:
+    """Host snapshot of a build session, the fields of the JAX package's.
+
+    Numpy payloads.  Restoring into a session with the same features and
+    config and running the remaining rounds equals never having
+    checkpointed, bit for bit (a round's randomness derives from
+    ``cfg.seed`` and its index alone); ``restore`` refuses another config.
+
+      * full (``checkpoint()``): ``nbr`` / ``w`` hold the (n, k) slab
+        image, ``ver`` the int64 logical row versions, ``base_seq`` the
+        delta stream's position; ``delta_chain`` is None.
+      * delta (``checkpoint(delta=True)``): ``nbr`` / ``w`` are None and
+        ``delta_chain`` holds the :class:`SlabDelta` records emitted since
+        the full checkpoint cut at ``base_seq``;
+        ``restore(..., base=that_checkpoint)`` replays it.
+
+    ``refresh_*`` carry the staleness-repair state (watermark, refresh
+    rounds run, the automatic policy's fractional credit, the per-window
+    ages), so a restored session refreshes as the uncheckpointed one.
+    ``measure_fingerprint`` is None for the ported (closed-form) measures.
+    """
+
+    n: int
+    capacity: int
+    reps_done: int
+    nbr: Optional[np.ndarray]
+    w: Optional[np.ndarray]
+    stats: Dict[str, int]
+    cfg: StarsConfig
+    refresh_watermark: int = 0
+    refresh_reps: int = 0
+    refresh_credit: float = 0.0
+    refresh_age: Optional[np.ndarray] = None
+    ver: Optional[np.ndarray] = None
+    base_seq: int = 0
+    delta_chain: Optional[tuple] = None
+    measure_fingerprint: Optional[str] = None
 
 
 class GraphBuilder:
@@ -139,6 +301,13 @@ class GraphBuilder:
     def __init__(self, features, cfg: StarsConfig, *,
                  device: DeviceLike = None):
         _check_ported(cfg)
+        if cfg.refresh_rate < 0:
+            raise ValueError(f"refresh_rate must be >= 0: {cfg.refresh_rate}")
+        if cfg.refresh_rate > 0 and not cfg.refresh_fraction > 0:
+            raise ValueError(
+                f"refresh_rate > 0 needs a positive refresh_fraction (got "
+                f"{cfg.refresh_fraction}): automatic refresh rounds would "
+                "sample no window and repair nothing")
         self.cfg = cfg
         self.device = resolve_device(device)
         dense = features.dense if isinstance(features, PointFeatures) \
@@ -151,6 +320,21 @@ class GraphBuilder:
         self._reps_done = 0
         self._counters: List[Dict] = []
         self._stats_base: Dict[str, int] = {}
+        # staleness repair: gids below the watermark are "old"; their
+        # mutual pairs left the round stream when it last moved
+        self._refresh_below = 0
+        self._refresh_reps = 0
+        self._refresh_credit = 0.0
+        self._refresh_age: Optional[np.ndarray] = None
+        # versioned slabs: logical row version = _ver_base + state.ver; the
+        # ship shadow is the host image of what the delta stream shipped
+        self._ver_base = 0
+        self._shadow_nbr: Optional[np.ndarray] = None
+        self._shadow_w: Optional[np.ndarray] = None
+        self._shipped_ver: Optional[np.ndarray] = None
+        self._delta_seq = 0
+        self._delta_log: List[SlabDelta] = []
+        self._last_full_seq: Optional[int] = None
         self._capacity = cfg.slab_capacity(self.n, reps=max(cfg.r, 1))
         self._state: Optional[acc_lib.EdgeAccumulator] = None
 
@@ -160,22 +344,186 @@ class GraphBuilder:
         return self._backend.n
 
     @property
+    def reps_done(self) -> int:
+        return self._reps_done
+
+    @property
+    def capacity(self) -> int:
+        return self._capacity
+
+    @property
+    def refresh_watermark(self) -> int:
+        """Points with a gid below this are "old" (0 before any extend)."""
+        return self._refresh_below
+
+    @property
     def stats(self) -> Dict[str, int]:
         """Running session totals (comparisons, emitted, ...) as host ints."""
         return self._merged_stats()
 
-    def add_reps(self, reps: Optional[int] = None) -> "GraphBuilder":
-        """Run ``reps`` more repetitions (default cfg.r) into the slabs."""
-        reps = self.cfg.r if reps is None else reps
-        self._grow(self.n, self._reps_done + reps)
-        for _ in range(reps):
-            self._state, counters = self._backend.run_round(
-                self._state, self._reps_done)
-            self._counters.append(counters)
-            if len(self._counters) >= self.COUNTER_ROLLUP_EVERY:
-                self._roll_up_counters()
-            self._reps_done += 1
+    def add_reps(self, reps: Optional[int] = None, *,
+                 progress: Progress = None) -> "GraphBuilder":
+        """Run ``reps`` more repetitions (default cfg.r) into the slabs.
+
+        The exact 'allpairs' source runs one sweep per point set.
+        """
+        if self.cfg.source_name == "allpairs":
+            reps = 1 if reps is None else reps
+            if reps != 1 or self._reps_done > 0:
+                raise ValueError(
+                    "the 'allpairs' source is exact: one sweep per point "
+                    "set (use extend() to cover inserted points)")
+        else:
+            reps = self.cfg.r if reps is None else reps
+        self._run_rounds(reps, new_from=0, progress=progress)
         return self
+
+    def _validate_extend(self, dense) -> None:
+        """Refuse a batch the table cannot take, naming the argument."""
+        table = self._backend.features.dense
+        dtype = dense.dtype if isinstance(dense, torch.Tensor) else \
+            torch.from_numpy(np.empty(0, np.asarray(dense).dtype)).dtype
+        if dtype != table.dtype:
+            raise ValueError(
+                f"extend(new_features=...): dense dtype {dtype} does not "
+                f"match the session's {table.dtype} table (append never "
+                "casts: cast rows would score differently from the "
+                "caller's originals)")
+        if tuple(dense.shape[1:]) != tuple(table.shape[1:]):
+            raise ValueError(
+                f"extend(new_features=...): rows of shape "
+                f"{tuple(dense.shape[1:])}, the session's are "
+                f"{tuple(table.shape[1:])}")
+
+    def extend(self, new_features, reps: Optional[int] = None, *,
+               progress: Progress = None) -> "GraphBuilder":
+        """Append points and run ``reps`` new-vs-all repetitions.
+
+        The slabs grow by the new rows (old edges untouched); the
+        extension rounds window all points but score only pairs with a
+        new endpoint (LSH-Stars rescores every sub-bucket a new point
+        lands in).  The staleness watermark moves to the old point count,
+        and with ``cfg.refresh_rate`` > 0 the extend banks ``reps *
+        refresh_rate`` refresh credit and runs its whole rounds as
+        refresh rounds (:meth:`refresh_reps`).
+        """
+        if self._reps_done == 0:
+            raise ValueError(
+                "extend() before any repetitions: the original points "
+                "would never be scored against each other (extension "
+                "rounds mask old-old pairs); run add_reps() first")
+        if self.cfg.source_name == "allpairs":
+            reps = 1 if reps is None else reps
+            if reps != 1:
+                raise ValueError("the 'allpairs' source is exact: one "
+                                 "new-vs-all sweep per extension")
+        else:
+            reps = self.cfg.r if reps is None else reps
+        dense = new_features.dense if isinstance(new_features, PointFeatures) \
+            else new_features
+        if not isinstance(dense, torch.Tensor):
+            dense = np.asarray(dense)
+        if dense.shape[0] == 0:
+            # nothing to score, and the watermark must not move
+            return self
+        self._validate_extend(dense)
+        old_n = self.n
+        self._backend.extend(as_tensor(dense, device=self.device))
+        self._refresh_below = old_n
+        self._run_rounds(reps, new_from=old_n, progress=progress)
+        if self.cfg.refresh_rate > 0 and self.cfg.source_name != "allpairs":
+            self._refresh_credit += reps * self.cfg.refresh_rate
+            auto = int(self._refresh_credit)
+            if auto:
+                self._refresh_credit -= auto
+                self._run_rounds(auto, new_from=0,
+                                 refresh_below=self._refresh_below,
+                                 refresh_fraction=self.cfg.refresh_fraction,
+                                 progress=progress)
+        return self
+
+    def refresh_reps(self, reps: int = 1, *, fraction: Optional[float] = None,
+                     progress: Progress = None) -> "GraphBuilder":
+        """Run ``reps`` staleness-repair repetitions over old-old windows.
+
+        A refresh round is the inverse of an extension round: it sketches
+        and windows all points with a fresh draw and scores only pairs
+        whose endpoints both lie below the watermark, inside a sampled
+        ``fraction`` of the windows (``cfg.refresh_fraction`` by default),
+        windows that went unsampled longer being likelier.  Counted in
+        ``stats['refresh_reps']`` and ``stats['refresh_comparisons']``
+        (and in ``comparisons``).
+        """
+        if self.cfg.source_name == "allpairs":
+            raise ValueError("the exact 'allpairs' source scores every "
+                             "pair once: it has no sampling staleness to "
+                             "refresh")
+        if self._refresh_below <= 0:
+            raise ValueError(
+                "nothing to refresh: no extend() has run, so no old-old "
+                "pair is masked out of the repetition stream yet")
+        fraction = (self.cfg.refresh_fraction if fraction is None
+                    else fraction)
+        if not 0.0 < fraction:
+            raise ValueError(f"refresh fraction must be positive: {fraction}")
+        self._run_rounds(reps, new_from=0, refresh_below=self._refresh_below,
+                         refresh_fraction=fraction, progress=progress)
+        return self
+
+    def _run_rounds(self, reps: int, new_from: int, *,
+                    refresh_below: int = 0, refresh_fraction: float = 1.0,
+                    progress: Progress = None) -> None:
+        self._grow(self.n, self._reps_done + reps)
+        refresh = refresh_below > 0
+        for _ in range(reps):
+            rep = self._reps_done
+            probs = (self._next_refresh_probs(rep, refresh_fraction)
+                     if refresh else None)
+            self._state, counters = self._backend.run_round(
+                self._state, rep, new_from, refresh_below=refresh_below,
+                refresh_fraction=refresh_fraction, refresh_probs=probs)
+            self._note_round(counters, refresh, progress)
+
+    def _note_round(self, counters: Dict, refresh: bool,
+                    progress: Progress) -> None:
+        if refresh:
+            counters = dict(counters)
+            counters["refresh_comparisons"] = counters["comparisons"]
+            self._refresh_reps += 1
+        self._counters.append(counters)
+        if len(self._counters) >= self.COUNTER_ROLLUP_EVERY:
+            self._roll_up_counters()
+        if progress is not None:
+            progress(self._reps_done)
+        self._reps_done += 1
+
+    def _next_refresh_probs(self, rep_index: int,
+                            fraction: float) -> np.ndarray:
+        """Window keep probabilities of one refresh round, advancing the
+        host age ledger past it.
+
+        A window's probability scales with 1 + the rounds since it was
+        last sampled, normalised so the expected sampled share stays
+        ``fraction``.  The ledger replays the round's draw on the host
+        (the same ``k_refresh`` uniform the device draws), so the ages
+        follow exactly the windows the device sampled.
+        """
+        nw = _refresh_window_count(self.cfg, self.n)
+        ages = self._refresh_age
+        if ages is None:
+            ages = np.zeros(nw, np.int64)
+        elif ages.shape[0] < nw:           # extend() grew the grid
+            ages = np.concatenate(
+                [ages, np.zeros(nw - ages.shape[0], np.int64)])
+        if fraction >= 1.0:
+            probs = np.full(nw, fraction, np.float32)
+        else:
+            weight = 1.0 + ages.astype(np.float64)
+            probs = (fraction * weight / weight.mean()).astype(np.float32)
+        k_refresh = _rep_keys(self.cfg, rep_index)[3]
+        draw = prng.uniform(k_refresh, (nw,), device="cpu").numpy()
+        self._refresh_age = np.where(draw < probs, 0, ages + 1)
+        return probs
 
     def _grow(self, n: int, reps_total: int) -> None:
         cap = max(self._capacity,
@@ -200,8 +548,9 @@ class GraphBuilder:
                          if isinstance(val, torch.Tensor)
                          else int(np.sum(np.asarray(val, np.int64))))
                 totals[key] = totals.get(key, 0) + total
+        # session-absolute values: overwrite what a roll-up left
         totals["reps"] = self._reps_done
-        totals["refresh_reps"] = 0
+        totals["refresh_reps"] = self._refresh_reps
         totals.setdefault("refresh_comparisons", 0)
         return totals
 
@@ -211,16 +560,206 @@ class GraphBuilder:
         self._stats_base = dict(stats)
         return stats
 
+    # -- versioned slabs and the delta stream ------------------------- #
     def slab_state(self) -> acc_lib.EdgeAccumulator:
         """The live device-resident (n, k) slabs (no host transfer)."""
         return self._ensure_state()
 
-    def finalize(self, *, delta: bool = False) -> Graph:
-        """Fetch the slabs off the device once and compact them to a Graph."""
+    def row_versions(self) -> np.ndarray:
+        """The (n,) int64 logical row versions (fetches only the int32
+        version vector; not metered as a delta fetch)."""
+        ver = self._ensure_state().ver.cpu().numpy()
+        return self._ver_base + ver.astype(np.int64)
+
+    @property
+    def delta_seq(self) -> int:
+        """How many deltas this session's delta stream has emitted."""
+        return self._delta_seq
+
+    def _ensure_shadow(self, n: int, k: int) -> None:
+        """Create or grow the host ship shadow to (n, k).
+
+        It starts empty with shipped version 0 (logical version 0 means
+        empty since creation), so the first delta ships every row that
+        ever changed; rows added later start at ``_ver_base``.
+        """
+        if self._shadow_nbr is None:
+            self._shadow_nbr = np.full((n, k), -1, np.int32)
+            self._shadow_w = np.full((n, k), -np.inf, np.float32)
+            self._shipped_ver = np.zeros((n,), np.int64)
+            return
+        n0, k0 = self._shadow_nbr.shape
+        if n > n0 or k > k0:
+            nbr = np.full((n, k), -1, np.int32)
+            w = np.full((n, k), -np.inf, np.float32)
+            nbr[:n0, :k0] = self._shadow_nbr
+            w[:n0, :k0] = self._shadow_w
+            sv = np.full((n,), self._ver_base, np.int64)
+            sv[:n0] = self._shipped_ver
+            self._shadow_nbr, self._shadow_w, self._shipped_ver = nbr, w, sv
+
+    def _emit_delta(self) -> SlabDelta:
+        """One step of the delta stream: fetch the changed rows and diff.
+
+        THE delta transfer: the (n,) int32 version vector, then only the
+        rows whose logical version passed the ship shadow's, metered
+        under ``transfer_stats['delta_*']``; the Z-set diff against the
+        shadow gives the records, and the shadow moves past them.
+        """
+        state = self.slab_state()
+        n, k = state.n, state.capacity
+        logical = self._ver_base + state.ver.cpu().numpy().astype(np.int64)
+        acc_lib.transfer_stats["delta_fetches"] += 1
+        acc_lib.transfer_stats["delta_bytes"] += n * 4
+        n_old = 0 if self._shadow_nbr is None else self._shadow_nbr.shape[0]
+        k_old = 0 if self._shadow_nbr is None else self._shadow_nbr.shape[1]
+        self._ensure_shadow(n, k)
+        changed = np.flatnonzero(logical > self._shipped_ver[:n])
+        if changed.size:
+            idx = torch.from_numpy(changed).to(state.nbr.device)
+            new_nbr = state.nbr[idx].cpu().numpy()
+            new_w = state.w[idx].cpu().numpy()
+            acc_lib.transfer_stats["delta_bytes"] += (new_nbr.nbytes
+                                                      + new_w.nbytes)
+        else:
+            new_nbr = np.zeros((0, k), np.int32)
+            new_w = np.zeros((0, k), np.float32)
+        acc_lib.transfer_stats["delta_rows"] += int(changed.size)
+        node, nbr_r, w_r, sign = diff_rows(
+            changed.astype(np.int32), self._shadow_nbr[changed],
+            self._shadow_w[changed], new_nbr, new_w)
+        self._delta_seq += 1
+        delta = SlabDelta(
+            seq=self._delta_seq, n_old=n_old, n_new=n, k_old=k_old, k_new=k,
+            rows=changed.astype(np.int32), row_ver=logical[changed].copy(),
+            node=node, nbr=nbr_r, w=w_r, sign=sign)
+        self._shadow_nbr[changed] = new_nbr
+        self._shadow_w[changed] = new_w
+        self._shipped_ver[changed] = logical[changed]
+        self._delta_log.append(delta)
+        return delta
+
+    def _snapshot(self, **payload) -> BuilderCheckpoint:
+        return BuilderCheckpoint(
+            n=self.n, capacity=self._capacity, reps_done=self._reps_done,
+            stats=self._roll_up_counters(), cfg=self.cfg,
+            refresh_watermark=self._refresh_below,
+            refresh_reps=self._refresh_reps,
+            refresh_credit=self._refresh_credit,
+            refresh_age=(None if self._refresh_age is None
+                         else self._refresh_age.copy()),
+            **payload)
+
+    def checkpoint(self, delta: bool = False) -> BuilderCheckpoint:
+        """Snapshot the session to host arrays (resumable builds).
+
+        Full (default): the (n, k) slab image and row versions; it also
+        syncs the delta stream's ship shadow to that image, so delta
+        checkpoints chain from it.  Delta (``delta=True``): the chain of
+        :class:`SlabDelta` records since the last full checkpoint (one cut
+        now for unshipped changes included), O(changed rows); it needs a
+        prior full checkpoint of this session.
+        """
         if delta:
-            raise NotImplementedError(
-                "finalize(delta=True) is not ported yet: it comes with the "
-                "session-lifecycle slice")
+            if self._last_full_seq is None:
+                raise ValueError(
+                    "checkpoint(delta=True) needs a prior full "
+                    "checkpoint() in this session to chain from")
+            self._emit_delta()             # capture unshipped changes
+            return self._snapshot(
+                nbr=None, w=None, ver=self._shipped_ver[:self.n].copy(),
+                base_seq=self._last_full_seq,
+                delta_chain=tuple(self._delta_log))
+        nbr, w, ver_dev = acc_lib.to_host(self._ensure_state())
+        logical = self._ver_base + ver_dev.astype(np.int64)
+        k = nbr.shape[1]
+        self._ensure_shadow(self.n, k)
+        self._shadow_nbr[:self.n, :k] = nbr
+        self._shadow_w[:self.n, :k] = w
+        self._shipped_ver[:self.n] = logical
+        self._delta_log = []
+        self._last_full_seq = self._delta_seq
+        return self._snapshot(nbr=nbr, w=w, ver=logical,
+                              base_seq=self._delta_seq)
+
+    @classmethod
+    def restore(cls, features, cfg: StarsConfig, ckpt: BuilderCheckpoint, *,
+                base: Optional[BuilderCheckpoint] = None,
+                device: DeviceLike = None) -> "GraphBuilder":
+        """Resume a session from a checkpoint (same features and config),
+        on ``device`` (CUDA unless ``"cpu"``).
+
+        A delta checkpoint also needs ``base=``, the full checkpoint its
+        chain starts from, and restores by replaying the chain onto that
+        image.  The restored session's delta stream is re-anchored at the
+        restored image.  A JAX package checkpoint goes through
+        :func:`repro_torch.core.convert.checkpoint_from_reference` first.
+        """
+        if cfg != ckpt.cfg:
+            raise ValueError(
+                "checkpoint was built under a different StarsConfig: "
+                "resuming would mix hash draws and slab sizing: "
+                f"{ckpt.cfg} vs {cfg}")
+        if ckpt.delta_chain is not None:
+            if base is None:
+                raise ValueError(
+                    "delta checkpoint: pass base=<the full checkpoint its "
+                    f"chain starts from> (base_seq {ckpt.base_seq})")
+            if base.delta_chain is not None or base.nbr is None:
+                raise ValueError("base= must be a FULL checkpoint")
+            if base.cfg != cfg:
+                raise ValueError("base checkpoint has a different "
+                                 "StarsConfig")
+            if base.base_seq != ckpt.base_seq:
+                raise ValueError(
+                    f"delta chain starts at stream seq {ckpt.base_seq}, "
+                    f"but base checkpoint was cut at seq {base.base_seq}")
+            nbr, w = replay_chain(base.nbr, base.w, ckpt.delta_chain)
+            ver = ckpt.ver
+        else:
+            nbr, w, ver = ckpt.nbr, ckpt.w, ckpt.ver
+        builder = cls(features, cfg, device=device)
+        if ckpt.measure_fingerprint is not None:
+            raise ValueError(
+                "checkpoint was built under a keyed (learned) measure "
+                f"({ckpt.measure_fingerprint!r}); this session's "
+                f"{cfg.measure!r} measure has none")
+        if builder.n != ckpt.n:
+            raise ValueError(f"checkpoint holds {ckpt.n} points, features "
+                             f"have {builder.n}")
+        if ver is None:                    # a snapshot without versions
+            ver = np.zeros((ckpt.n,), np.int64)
+        ver = np.asarray(ver, np.int64)
+        # int64 logical -> host base + device int32 offset
+        vbase = int(ver.min()) if ckpt.n else 0
+        builder._ver_base = vbase
+        builder._capacity = ckpt.capacity
+        builder._state = acc_lib.from_host(
+            nbr, w, (ver - vbase).astype(np.int32), device=builder.device)
+        builder._shadow_nbr = np.array(nbr, np.int32)
+        builder._shadow_w = np.array(w, np.float32)
+        builder._shipped_ver = ver.copy()
+        builder._delta_seq = ckpt.base_seq + len(ckpt.delta_chain or ())
+        builder._reps_done = ckpt.reps_done
+        builder._stats_base = dict(ckpt.stats)
+        builder._refresh_below = ckpt.refresh_watermark
+        builder._refresh_reps = ckpt.refresh_reps
+        builder._refresh_credit = ckpt.refresh_credit
+        builder._refresh_age = (None if ckpt.refresh_age is None
+                                else np.asarray(ckpt.refresh_age, np.int64))
+        return builder
+
+    def finalize(self, *, delta: bool = False):
+        """Fetch edges off the device: the whole graph, or what changed.
+
+        Default: the slabs cross to the host once
+        (``accumulator.to_graph``) and compact into a :class:`Graph`; the
+        session stays usable.  ``delta=True``: only the rows whose version
+        advanced since the last ship, as a :class:`SlabDelta` that a
+        consumer applies to its replica (``service.delta.apply_delta``);
+        metered under ``transfer_stats['delta_*']``.
+        """
+        if delta:
+            return self._emit_delta()
         return acc_lib.to_graph(self._ensure_state(),
                                 stats=self._roll_up_counters())
-

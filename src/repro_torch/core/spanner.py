@@ -82,9 +82,29 @@ class Graph:
         valid = (nbr_f >= 0) & np.isfinite(w_f)
         return Graph.from_candidates(n, node, nbr_f, w_f, valid, stats)
 
+    def merged_with(self, other: "Graph") -> "Graph":
+        """The union of two graphs on the same points (max weight on a
+        shared edge; stats summed key by key)."""
+        assert self.n == other.n
+        g = Graph.from_candidates(
+            self.n,
+            np.concatenate([self.src, other.src]),
+            np.concatenate([self.dst, other.dst]),
+            np.concatenate([self.w, other.w]),
+            np.ones(self.num_edges + other.num_edges, bool))
+        g.stats = {k: self.stats.get(k, 0) + other.stats.get(k, 0)
+                   for k in set(self.stats) | set(other.stats)}
+        return g
+
     # ------------------------------------------------------------------ #
     # Transformations
     # ------------------------------------------------------------------ #
+    def threshold(self, r: float) -> "Graph":
+        """The edges of weight at least ``r``."""
+        keep = self.w >= r
+        return Graph(self.n, self.src[keep], self.dst[keep], self.w[keep],
+                     dict(self.stats))
+
     def degree_cap(self, k: int) -> "Graph":
         """Keep an edge iff it is among the k heaviest of *either* endpoint
         (the paper's "keep the 250 closest points for each node")."""
@@ -120,3 +140,23 @@ class Graph:
         np.add.at(indptr, ends + 1, 1)
         indptr = np.cumsum(indptr)
         return indptr, nbrs, wts
+
+    def two_hop_sets(self, queries: np.ndarray, *,
+                     min_edge_w: float = -np.inf) -> list:
+        """For each query p: the nodes within two hops over edges of
+        weight >= min_edge_w, p itself excluded."""
+        indptr, nbrs, wts = self.to_csr()
+        out = []
+        for p in queries:
+            a = slice(indptr[p], indptr[p + 1])
+            one = nbrs[a][wts[a] >= min_edge_w]
+            if one.size == 0:
+                out.append(np.empty(0, np.int64))
+                continue
+            parts = [one]
+            for z in one:
+                b = slice(indptr[z], indptr[z + 1])
+                parts.append(nbrs[b][wts[b] >= min_edge_w])
+            two = np.unique(np.concatenate(parts))
+            out.append(two[two != p])
+        return out

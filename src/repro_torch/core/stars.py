@@ -26,9 +26,12 @@ TPU memory knob.  The port scores a whole repetition in one call on either
 path: every window's stream entries and masks are those of the chunked
 program, and its per-window counters sum to the same totals.
 
-Ported so far: both modes, Stars and all-pairs scoring, the Hamming
-prefilter, dense cosine / dot measures, no extension or refresh rounds.
-The non-dense measures raise ``NotImplementedError``.
+Extension rounds (``new_from`` > 0) score only pairs with a point at or
+past ``new_from``; refresh rounds (``refresh_below`` > 0) only pairs of
+points below it, in a sampled set of windows (``GraphBuilder.extend`` /
+``refresh_reps``).  Ported so far: both modes, Stars and all-pairs
+scoring, the Hamming prefilter, dense cosine / dot measures, extension and
+refresh rounds; the non-dense measures raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ import torch
 from repro_torch import prng
 from repro_torch.core import lsh as lsh_lib
 from repro_torch.core import windows as win_lib
+from repro_torch.device import as_tensor
 from repro_torch.graph import accumulator as acc_lib
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.similarity.measures import PointFeatures
@@ -123,6 +127,26 @@ def _scored_rows(nw: int, row_offset: int, total_rows: Optional[int],
     return max(0, min(nw, (total_rows - row_offset + stride - 1) // stride))
 
 
+def _refresh_window_sample(k_refresh: prng.Key, nw: int, fraction: float,
+                           probs=None, *,
+                           device: torch.device) -> torch.Tensor:
+    """(nw,) bool: the windows one refresh round rescores.
+
+    A uniform draw from the repetition's ``k_refresh`` key, one per window
+    row, kept where it falls below ``fraction`` or, when given, below the
+    row's keep probability in ``probs`` (the host's float32 age-weighted
+    vector, ``GraphBuilder._next_refresh_probs``).  A probability of 1.0
+    or more keeps every window.  This is the single-device case of the
+    JAX package's ``windows.global_row_draw``: the draw covers the whole
+    grid, with no row offset or stride.
+    """
+    draw = prng.uniform(k_refresh, (nw,), device=device)
+    if probs is None:
+        return draw < torch.tensor(fraction, dtype=torch.float32,
+                                   device=device)
+    return draw < as_tensor(probs[:nw], device=device, dtype=torch.float32)
+
+
 def _rep_keys(cfg: StarsConfig, rep_index: int):
     """The per-repetition PRNG keys (k_tie, k_shift, k_lead, k_refresh)."""
     k = prng.fold_in(prng.key(cfg.seed), rep_index)
@@ -169,13 +193,21 @@ def _emit(mask: torch.Tensor, sims: torch.Tensor,
 
 def _rep_lsh_stars(cfg: StarsConfig, features: PointFeatures,
                    prefilter: Optional[torch.Tensor],
-                   win: win_lib.Windows):
+                   win: win_lib.Windows, *, new_from: int = 0,
+                   refresh_below: int = 0,
+                   keep_win: Optional[torch.Tensor] = None):
     """Stars 1 scoring: every member compares to its bucket's leader only.
 
     The sort tiebreak is a fresh random priority, so the first slot of
     every bucket run in a window is a uniformly random leader; a window's
     first slot starts a new run (the random sub-bucket split at the cap).
     O(n) comparisons per repetition, scored as (nw * W, 1, 1) tiles.
+
+    ``new_from`` > 0 rescores every sub-bucket that holds a point at or
+    past ``new_from`` (a new member reaches its old bucket-mates only
+    through the leader, so the whole touched star is scored);
+    ``refresh_below`` > 0 keeps pairs of old points in the windows of
+    ``keep_win``.
     """
     nw, w_sz = win.gid.shape
     dev = win.gid.device
@@ -187,6 +219,16 @@ def _rep_lsh_stars(cfg: StarsConfig, features: PointFeatures,
     head_gid = win.gid.gather(1, head_slot)
     # an invalid head disables its whole run, as in the JAX package
     mask = win.valid & win.valid.gather(1, head_slot) & (head_slot != slot)
+    if new_from > 0:
+        # scatter-max of "holds a new point" over each sub-bucket run
+        is_new = (win.valid & (win.gid >= new_from)).to(torch.int32)
+        seg = torch.cumsum(is_head.to(torch.int64), dim=1)
+        seg_new = torch.zeros((nw, w_sz + 1), dtype=torch.int32, device=dev)
+        seg_new.scatter_reduce_(1, seg, is_new, reduce="amax")
+        mask &= seg_new.gather(1, seg) > 0
+    if refresh_below > 0:
+        mask &= (keep_win[:, None] & (head_gid < refresh_below)
+                 & (win.gid < refresh_below))
     pref_ops = torch.zeros((nw,), dtype=torch.int32, device=dev)
     if prefilter is not None:
         pref_ops = mask.sum(1, dtype=torch.int32)
@@ -225,39 +267,63 @@ def _rep_window_grid(cfg: StarsConfig, bits: torch.Tensor,
 
 
 def _rep_candidates(cfg: StarsConfig, features: PointFeatures,
-                    prefilter: Optional[torch.Tensor], rep_index: int):
+                    prefilter: Optional[torch.Tensor], rep_index: int, *,
+                    new_from: int = 0, refresh_below: int = 0,
+                    refresh_fraction: float = 1.0,
+                    refresh_probs: Optional[torch.Tensor] = None):
     """One repetition: sketch, window, score; returns the candidate stream.
 
     A dict of the flat 'src', 'dst', 'w' stream and its 'emit' mask, and
     per-window int32 'comparisons' / 'emitted' / 'prefilter_ops' counts
     (summed on the host as int64).  ``prefilter`` is the packed sketch of
     :func:`_prefilter_sketch` when the config has the prefilter on.
+
+    ``new_from`` > 0 masks out pairs of points both below it (an extension
+    round: old-old edges are already in the slabs); ``refresh_below`` > 0
+    keeps only pairs of points both below it, in the windows the refresh
+    sample keeps (``refresh_probs``, else ``refresh_fraction``).  The masks
+    act before the counters, so 'comparisons' counts what was scored.
     """
     rep_seed = (rep_index & 0xFFFFFFFF) ^ (cfg.seed & 0xFFFFFFFF)
-    k_tie, k_shift, k_lead, _ = _rep_keys(cfg, rep_index)
+    k_tie, k_shift, k_lead, k_refresh = _rep_keys(cfg, rep_index)
     bits = lsh_lib.sketch(features, cfg.family, rep_seed=rep_seed)
     win = _rep_window_grid(cfg, bits, k_tie, k_shift)
-    return _score_windows(cfg, features, prefilter, win, k_lead)
+    return _score_windows(cfg, features, prefilter, win, k_lead,
+                          new_from=new_from, refresh_below=refresh_below,
+                          refresh_fraction=refresh_fraction,
+                          k_refresh=k_refresh, refresh_probs=refresh_probs)
 
 
 def _score_windows(cfg: StarsConfig, features: PointFeatures,
                    prefilter: Optional[torch.Tensor],
-                   win: win_lib.Windows, k_lead: prng.Key):
+                   win: win_lib.Windows, k_lead: prng.Key, *,
+                   new_from: int = 0, refresh_below: int = 0,
+                   refresh_fraction: float = 1.0,
+                   k_refresh: Optional[prng.Key] = None,
+                   refresh_probs: Optional[torch.Tensor] = None):
     """Score one repetition's windows into a masked candidate stream.
 
     LSH-Stars goes to :func:`_rep_lsh_stars`.  Otherwise, without the
     prefilter, the fused branch of the JAX package: gather the leader and
     member rows once, then one ``window_score`` call gives the
-    similarities, the emit mask and the per-window counters.  With the
-    prefilter, the JAX package's chunked branch over the whole repetition:
-    the mask chain here, the Hamming cut, then ``leader_score`` tiles.
+    similarities, the emit mask (the extension and refresh masks
+    included) and the per-window counters.  With the prefilter, the JAX
+    package's chunked branch over the whole repetition: the mask chain
+    here, the Hamming cut, then ``leader_score`` tiles.
     """
     if cfg.measure not in ("cosine", "dot"):
         raise NotImplementedError(f"measure={cfg.measure!r} {_LATER}")
-    if cfg.mode == "lsh" and cfg.scoring == "stars":
-        return _rep_lsh_stars(cfg, features, prefilter, win)
     nw, w_sz = win.gid.shape
     dev = win.gid.device
+    refresh = refresh_below > 0
+    keep_win = (_refresh_window_sample(k_refresh, nw, refresh_fraction,
+                                       refresh_probs, device=dev)
+                if refresh else
+                torch.ones((nw,), dtype=torch.bool, device=dev))
+    if cfg.mode == "lsh" and cfg.scoring == "stars":
+        return _rep_lsh_stars(cfg, features, prefilter, win,
+                              new_from=new_from, refresh_below=refresh_below,
+                              keep_win=keep_win)
     if cfg.scoring == "stars":
         leader_slot, leader_ok = win_lib.sample_leaders(
             win, s=cfg.leaders, key=k_lead)
@@ -273,14 +339,14 @@ def _score_windows(cfg: StarsConfig, features: PointFeatures,
     if prefilter is None:
         lead = masked_take(features, lead_gid).dense
         memb = masked_take(features, win.gid).dense
-        keep_win = torch.ones((nw,), dtype=torch.bool, device=dev)
         sims, emit, comparisons, emitted = kernel_ops.window_score(
             lead.contiguous(), memb.contiguous(), leader_slot.contiguous(),
             lead_gid, win.gid, leader_ok.contiguous(), win.valid,
             lead_bucket, win.bucket, keep_win,
             normalized=cfg.measure == "cosine",
             allpairs=cfg.scoring == "allpairs",
-            match_bucket=cfg.mode == "lsh", r1=cfg.r1)
+            match_bucket=cfg.mode == "lsh", new_from=new_from,
+            refresh_below=refresh_below, r1=cfg.r1)
         pref_ops = torch.zeros((nw,), dtype=torch.int32, device=dev)
     else:
         members = torch.arange(w_sz, dtype=torch.int32, device=dev)
@@ -291,6 +357,13 @@ def _score_windows(cfg: StarsConfig, features: PointFeatures,
             mask &= lslot < members               # each unordered pair once
         if cfg.mode == "lsh":
             mask &= lead_bucket[:, :, None] == win.bucket[:, None, :]
+        if new_from > 0:
+            mask &= ((lead_gid[:, :, None] >= new_from)
+                     | (win.gid[:, None, :] >= new_from))
+        if refresh:
+            mask &= keep_win[:, None, None]
+            mask &= ((lead_gid[:, :, None] < refresh_below)
+                     & (win.gid[:, None, :] < refresh_below))
         pref_ops = mask.sum((1, 2), dtype=torch.int32)
         ham = lsh_lib.hamming_pairwise(prefilter[lead_gid.clamp_min(0)],
                                        prefilter[win.gid.clamp_min(0)])
@@ -306,3 +379,28 @@ def _score_windows(cfg: StarsConfig, features: PointFeatures,
                 emitted=emitted, comparisons=comparisons,
                 prefilter_ops=pref_ops,
                 scored_windows=_scored_rows(nw, 0, None))
+
+
+def build_graph(features, cfg: StarsConfig, *, device=None,
+                progress=None):
+    """Run ``cfg.r`` repetitions and return the graph: the one-shot
+    wrapper over :class:`repro_torch.core.builder.GraphBuilder`."""
+    from repro_torch.core.builder import GraphBuilder
+    builder = GraphBuilder(features, cfg, device=device)
+    builder.add_reps(cfg.r, progress=progress)
+    return builder.finalize()
+
+
+def allpairs_graph(features, measure: str = "cosine", *,
+                   r1: Optional[float] = None,
+                   degree_cap: Optional[int] = None, block: int = 2048,
+                   device=None):
+    """The exact *AllPair* baseline: n (n - 1) / 2 comparisons in blocks,
+    one sweep of the 'allpairs' source of
+    :class:`repro_torch.core.builder.GraphBuilder`."""
+    from repro_torch.core.builder import GraphBuilder
+    cfg = StarsConfig(source="allpairs", measure=measure, r=1, r1=r1,
+                      degree_cap=degree_cap, allpairs_block=block)
+    builder = GraphBuilder(features, cfg, device=device)
+    builder.add_reps(1)
+    return builder.finalize()

@@ -34,10 +34,14 @@ _BIG = 2**31 - 1
 
 # Host-transfer accounting: every fetch of edge payload off the device goes
 # through to_graph(), so "one device-to-host edge transfer per build" is
-# checkable; to_host() snapshots count separately.
+# checkable; to_host() snapshots (checkpoints) and the delta stream's
+# fetches of changed rows (GraphBuilder.finalize(delta=True)) count
+# separately.
 transfer_stats: Dict[str, int] = {"edge_fetches": 0, "bytes": 0,
                                   "checkpoint_fetches": 0,
-                                  "checkpoint_bytes": 0}
+                                  "checkpoint_bytes": 0,
+                                  "delta_fetches": 0, "delta_bytes": 0,
+                                  "delta_rows": 0}
 
 
 def reset_transfer_stats() -> None:

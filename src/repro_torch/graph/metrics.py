@@ -6,6 +6,9 @@ of ``repro.graph.metrics``.
   * ``neighbor_recall``       — fraction of (approximate) k-nearest
                                 neighbours found in 1 or 2 hops (Fig. 2,
                                 SortingLSH variants).
+  * ``two_hop_threshold_recall`` — fraction of true near neighbours
+                                (sim >= r2) reachable in two hops over
+                                edges of weight >= r1 (Def. 2.1).
 """
 
 from __future__ import annotations
@@ -78,4 +81,21 @@ def neighbor_recall(graph: Graph, queries: np.ndarray,
             ratios.append(1.0)
         else:
             ratios.append(inter / truth.size)
+    return float(np.mean(ratios)) if ratios else 0.0
+
+
+def two_hop_threshold_recall(graph: Graph, queries: np.ndarray,
+                             true_neighbors: Sequence[np.ndarray], *,
+                             min_edge_w: float) -> float:
+    """Fraction of ground-truth near neighbours (sim >= r2) reachable within
+    two hops where every edge on the path has weight >= min_edge_w."""
+    g = graph.threshold(min_edge_w)
+    two_hop = g.two_hop_sets(np.asarray(queries))
+    ratios = []
+    for found, truth in zip(two_hop, true_neighbors):
+        truth = np.asarray(truth)
+        if truth.size == 0:
+            continue
+        inter = np.intersect1d(found, truth).size
+        ratios.append(inter / truth.size)
     return float(np.mean(ratios)) if ratios else 0.0

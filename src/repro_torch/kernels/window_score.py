@@ -27,10 +27,14 @@ import torch
 
 from repro_torch.kernels import _build
 
-# Launches of the kernel since the last reset, in all and by design (plain
-# counts: set them to 0 to measure a run).
+# Launches of the kernel since the last reset, in all, by design and by
+# the mask the launch applied: "new" for an extension round's
+# (new_from > 0), "refresh" for a refresh round's (refresh_below > 0, with
+# the sampled window keep), "none" otherwise (plain counts: set them to 0
+# to measure a run).
 launches = 0
 design_launches = {"pipe": 0, "tile": 0}
+mask_launches = {"none": 0, "new": 0, "refresh": 0}
 
 # Widest row of the pipe design: one stage of the ring must fit a block.
 PIPE_MAX_D = 512
@@ -107,7 +111,15 @@ def window_score(leaders: torch.Tensor, members: torch.Tensor,
                   refresh_below=refresh_below, r1=r1)
     launches += 1
     design_launches[design] += 1
+    mask_launches[_mask_kind(new_from, refresh_below)] += 1
     return out
+
+
+def _mask_kind(new_from: int, refresh_below: int) -> str:
+    """The ``mask_launches`` key of a launch's round masks."""
+    if refresh_below > 0:
+        return "refresh"
+    return "new" if new_from > 0 else "none"
 
 
 def _launch(design: str, leaders, members, leader_slot, lead_gid, gid,

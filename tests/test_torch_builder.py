@@ -108,8 +108,8 @@ def test_stars_config_mirrors_jax_fields_and_defaults():
 
 @pytest.mark.parametrize("change", [
     dict(family=HashFamilyConfig("wminhash")), dict(pair_cache_slots=8),
-    dict(measure="jaccard"), dict(source="allpairs"),
-    dict(feature_store="paged"), dict(refresh_rate=0.5),
+    dict(measure="jaccard"), dict(measure="learned"),
+    dict(feature_store="paged"), dict(measure="mixture"),
     dict(family=HashFamilyConfig("minhash"))])
 def test_unported_configs_raise(change):
     x = np.zeros((8, 4), np.float32)
@@ -119,11 +119,15 @@ def test_unported_configs_raise(change):
 
 
 def test_unported_session_calls_raise():
+    """``cluster`` waits for the serving-loop slice: the session has no
+    such call yet.  Delta finalize is ported and returns a delta."""
+    from repro_torch.service.delta import SlabDelta
     x = np.random.RandomState(0).randn(40, 8).astype(np.float32)
     b = GraphBuilder(x, StarsConfig(r=1, window=8, leaders=2),
                      device="cpu").add_reps()
-    with pytest.raises(NotImplementedError):
-        b.finalize(delta=True)
+    with pytest.raises(AttributeError):
+        b.cluster()
+    assert isinstance(b.finalize(delta=True), SlabDelta)
     assert b.finalize().num_edges > 0
 
 
@@ -146,7 +150,9 @@ import numpy as np, torch
 import repro_torch
 from repro_torch import GraphBuilder, StarsConfig
 import repro_torch.kernels.ops, repro_torch.graph.metrics, \\
-    repro_torch.graph.affinity, repro_torch.testing
+    repro_torch.graph.affinity, repro_torch.testing, \\
+    repro_torch.core.convert, repro_torch.service.delta, \\
+    repro_torch.graph.components, repro_torch.graph.single_linkage
 assert "jax" not in sys.modules or sys.modules["jax"] is None
 assert not any(m == "repro" or m.startswith("repro.") for m in sys.modules)
 x = np.random.RandomState(0).randn(40, 8).astype(np.float32)
