@@ -37,14 +37,26 @@ Phases, one JSON line each; any failed check exits non-zero:
               window_score's launches by mask (none / new / refresh) 25 /
               25 / 2; the checkpoint restored into a second session (then
               the same extend and refresh) against the live slabs.  Then
-              e2e_session_delta: the same lifecycle on the first 2**18
+              e2e_session_delta: the same lifecycle on the first 2**17
               points, finalize(delta=True), and the delta replayed onto
               the checkpoint against the live slabs (host numpy).
   8. e2e_allpairs: the exact AllPair sweep (one topk_merge per block of
               2,048 x 2,048 pairs) on the first 2**16 points: C(n, 2)
               comparisons and two-hop recall@10 >= 0.999; then the default
               Stars build on the same points for the comparison ratio.
-  9. lm_embed: gemma3-1b at full width and depth (random weights from a
+     e2e_learned: the Amazon2m learned pipeline at n = 2**20 (d = 100,
+              sets of 16): the two-tower measure at its defaults (random
+              weights) over mixture-family (M = 16) SortingLSH Stars,
+              built with the pair cache off and on (2**26 slots): the
+              slabs equal bit for bit; precompute seconds, s / rep,
+              comparisons, expensive comparisons, cache hits, misses,
+              evictions, the cache's bytes, peak device memory.
+    e2e_jaccard: the Wikipedia pipeline at n = 2**20 (weighted sets of 32):
+              weighted MinHash (M = 3) SortingLSH Stars over the exact
+              Jaccard; the weighted MinHash words against the CPU's; then
+              the exact Jaccard AllPair sweep beside Stars on the first
+              2**14 sets.
+ 9. lm_embed: gemma3-1b at full width and depth (random weights from a
               seeded torch.Generator) embeds 4,096 sequences of 2,048
               tokens with embed_corpus (every flash_attention launch on the
               tensor-core design), then the default Stars build over the
@@ -61,7 +73,15 @@ Phases, one JSON line each; any failed check exits non-zero:
               LSH-Stars and prefilter configs at n = 20,000 (with each
               device's delta replay), on CUDA and on the CPU (plain
               versions); stats equal, edge sets equal up to reported
-              slab-boundary near-ties.
+              slab-boundary near-ties.  Then the measure layer at
+              n = 20,000, r = 3: Jaccard with weighted MinHash, the
+              mixture measure (sorting- and LSH-Stars), the learned
+              measure (raw pair features with the cache off and on,
+              embedding pair features, each with an extend and a restore;
+              with the Hamming prefilter), and the exact Jaccard sweep at
+              n = 5,000.  The CPU builds run in a worker process
+              (``chip_smoke.py --parity-worker``, no card visible) that
+              starts after phase 3, so they overlap phases 4-11.
 
 The last lines are the kernels' summary, the card's name and power limit
 as nvidia-smi reports them, and the result line.  Without CUDA, or without
@@ -883,28 +903,42 @@ def exact_neighbours(torch, x, queries, k=10):
     return list(sims.topk(k, dim=1).indices.cpu().numpy())
 
 
-def run_build(torch, phase, x, cfg, need, extra=None):
+def timed_reps(torch, builder, reps):
+    """Seconds of each of ``reps`` add_reps(1) calls (synchronised)."""
+    out = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        builder.add_reps(1)
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t)
+    return out
+
+
+def run_build(torch, phase, x, cfg, need, extra=None, truth=None):
     """One path of the port: GraphBuilder(x, cfg).add_reps().finalize()
     with every launch count set to 0 just before and read just after
     (one round for the exact 'allpairs' source, cfg.r otherwise).
-    ``need`` maps a kernel to a check on its count.  Returns the launch
-    counts, the builder (for a profile) and the row it printed."""
+    ``need`` maps a kernel to a check on its count.  ``x`` is a dense
+    tensor or PointFeatures; ``truth(queries)`` gives each query's exact
+    top-10 neighbours (cosine neighbours of dense ``x`` by default).
+    Returns the launch counts, the builder (for a profile) and the row
+    it printed."""
     import numpy as np
-    from repro_torch import GraphBuilder
+    from repro_torch import GraphBuilder, PointFeatures
     from repro_torch.graph.metrics import neighbor_recall
-    n, d = x.shape
+    if isinstance(x, PointFeatures):
+        n = x.n
+        d = None if x.dense is None else x.dense.shape[1]
+    else:
+        n, d = x.shape
+        truth = truth or (lambda q: exact_neighbours(torch, x, q))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     builder = GraphBuilder(x, cfg)
-    rep_s = []
-    t0 = time.perf_counter()
-    for _ in range(1 if cfg.source_name == "allpairs" else cfg.r):
-        t = time.perf_counter()
-        builder.add_reps(1)
-        torch.cuda.synchronize()
-        rep_s.append(time.perf_counter() - t)
-    reps_s = time.perf_counter() - t0
+    rep_s = timed_reps(torch, builder,
+                       1 if cfg.source_name == "allpairs" else cfg.r)
+    reps_s = sum(rep_s)
     launches = read_launches()
     for name, ok in need.items():
         check(ok(launches[name]),
@@ -916,8 +950,11 @@ def run_build(torch, phase, x, cfg, need, extra=None):
     stats = graph.stats
     check(graph.num_edges > 0, f"{phase}: no edges")
     check(bool(np.isfinite(graph.w).all()), f"{phase}: non-finite weight")
-    check(bool((np.abs(graph.w) <= 1.0 + 1e-5).all()),
-          f"{phase}: cosine weight out of [-1, 1]")
+    if cfg.measure == "cosine":
+        check(bool((np.abs(graph.w) <= 1.0 + 1e-5).all()),
+              f"{phase}: cosine weight out of [-1, 1]")
+    else:       # the JAX package's Jaccard counts a repeated set id twice
+        check(bool((graph.w >= 0).all()), f"{phase}: negative weight")
     check(bool((graph.src < graph.dst).all() and (graph.dst < n).all()),
           f"{phase}: edge ids out of canonical range")
     check(stats["comparisons"] > 0, f"{phase}: no comparisons")
@@ -925,12 +962,12 @@ def run_build(torch, phase, x, cfg, need, extra=None):
     t = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     queries = torch.randint(0, n, (1000,), generator=gen, device="cuda")
-    truth = exact_neighbours(torch, x, queries)
-    recall = neighbor_recall(graph, queries.cpu().numpy(), truth, hops=2,
-                             k_cap=10)
+    recall = neighbor_recall(graph, queries.cpu().numpy(), truth(queries),
+                             hops=2, k_cap=10)
     recall_s = time.perf_counter() - t
     check(0.0 < recall <= 1.0, f"{phase}: two-hop recall@10 {recall}")
     row = {"phase": phase, "n": n, "d": d, "source": cfg.source_name,
+          "measure": cfg.measure, "family": cfg.family.kind,
           "mode": cfg.mode, "scoring": cfg.scoring, "m": cfg.family.m,
           "r": cfg.r,
           "window": cfg.window, "leaders": cfg.leaders,
@@ -1009,11 +1046,11 @@ def phase_e2e_prefilter(torch, x) -> dict:
 # an extend by the last 1/8 and two refresh rounds
 N_SESSION_BASE = N_E2E * 7 // 8
 SESSION_REFRESH_REPS = 2
-# e2e_session_delta: the same lifecycle on the first 2**18 points, then the
+# e2e_session_delta: the same lifecycle on the first 2**17 points, then the
 # delta stream.  Its host numpy (the JAX package's algorithm, one sort of
 # all entries of the changed rows) grows with every row an insert touches:
 # at 2**20 it would take the script past its time limit
-N_SESSION_DELTA = 1 << 18
+N_SESSION_DELTA = 1 << 17
 # e2e_allpairs: the exact sweep on the first 2**16 e2e points
 N_ALLPAIRS = 1 << 16
 
@@ -1028,14 +1065,14 @@ def tie_ordered(torch, nbr, w):
     return torch.sort(key, dim=1).values & 0xFFFFFFFF
 
 
-def check_replay(torch, what, replica, live) -> int:
+def check_replay(torch, what, replica, live, device="cuda") -> int:
     """A replayed slab image against the live one: the weight bits equal
     slot for slot, and the neighbours too except for their order within
     a run of exactly equal weights (a replayed row keeps ties in arrival
     order, the device orders them by neighbour id).  Returns how many
     rows differed only by that order."""
-    r_nbr, r_w = (torch.as_tensor(a, device="cuda") for a in replica)
-    l_nbr, l_w = (torch.as_tensor(a, device="cuda") for a in live)
+    r_nbr, r_w = (torch.as_tensor(a, device=device) for a in replica)
+    l_nbr, l_w = (torch.as_tensor(a, device=device) for a in live)
     check(r_nbr.shape == l_nbr.shape, f"{what}: replayed image "
           f"{tuple(r_nbr.shape)} vs live {tuple(l_nbr.shape)}")
     bits = lambda t: t.view(torch.int32)
@@ -1232,6 +1269,234 @@ def phase_e2e_allpairs(torch, x) -> dict:
           "recall_allpairs": row["two_hop_recall_at_10"],
           "recall_stars": stars["two_hop_recall_at_10"]})
     del builder
+    torch.cuda.empty_cache()
+    return launches
+
+
+# The measure layer's paths: the Amazon2m learned pipeline and the
+# Wikipedia weighted-set pipeline, each at n = 2**20 (the paper's
+# Appendix C.2 / D.2 settings: the two-tower model at its defaults, the
+# mixture family at M = 16, weighted MinHash at M = 3), with the pair
+# cache at 2**26 slots; the exact Jaccard sweep on the first 2**14 sets.
+# Their tiles score in chunks of core.stars.score_chunk_rows windows (the
+# card's cap on a scoring block over the pair's widest intermediate)
+N_MEASURE = 1 << 20
+PAIR_CACHE_SLOTS = 1 << 26
+N_JACCARD_SWEEP = 1 << 14
+
+
+def products_points(torch, n, device="cuda"):
+    """Amazon2m-like points: d = 100, 47 classes, co-purchase sets of 16,
+    30 % near-duplicates, drawn on the card."""
+    from repro_torch.data import products_like_points
+    return products_like_points(n, d=100, classes=47, nnz=16, dup_frac=0.3,
+                                seed=SEED, device=device)[0]
+
+
+def wikipedia_sets(torch, n, nnz=32, device="cuda"):
+    """Wikipedia-like weighted sets: 20 classes, 30 % near-duplicates."""
+    from repro_torch.data import wikipedia_like_sets
+    return wikipedia_like_sets(n, classes=20, nnz=nnz, dup_frac=0.3,
+                               seed=SEED, device=device)[0]
+
+
+def learned_measure(torch, **kw):
+    """The two-tower model at TwoTowerConfig(in_dim=100)'s defaults (or
+    with ``kw``), random weights from torch.Generator(SEED) on the card."""
+    from repro_torch import (LearnedMeasure, LearnedSimilarity,
+                             TwoTowerConfig)
+    model = LearnedSimilarity(TwoTowerConfig(in_dim=100, **kw))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    return LearnedMeasure(model, model.init(gen))
+
+
+# The measure paths fold through topk_merge and score outside the kernels
+MEASURE_PATH = {**MERGE_ONLY, "window_score": lambda c: c == 0,
+                "leader_score": lambda c: c == 0}
+
+
+def phase_e2e_learned(torch) -> dict:
+    """The Amazon2m learned pipeline at n = 2**20: the two-tower measure
+    (raw pair features: cosine of the rows, Jaccard of the sets) over
+    mixture-family SortingLSH Stars, r = 25, W = 250, s = 25, cap 250,
+    built with the pair cache off and then on (2**26 slots); the two
+    builds' slabs must be equal bit for bit.  Returns the launch counts
+    of each run by name."""
+    import dataclasses
+    from repro_torch import GraphBuilder, HashFamilyConfig, StarsConfig
+    from repro_torch.core.stars import score_chunk_rows
+    feats = products_points(torch, N_MEASURE)
+    meas = learned_measure(torch)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    state = meas.precompute(feats)
+    torch.cuda.synchronize()
+    precompute_s = time.perf_counter() - t
+    check(state.shape == (N_MEASURE, 32)
+          and bool(torch.isfinite(state).all()),
+          "e2e_learned: embeddings not finite or of the wrong shape")
+    del state
+    cfg = StarsConfig(measure="learned",
+                      family=HashFamilyConfig("mixture", m=16))
+    runs, slabs, launches = {}, {}, {}
+    for name, c in (("e2e_learned", cfg),
+                    ("e2e_learned_cache", dataclasses.replace(
+                        cfg, pair_cache_slots=PAIR_CACHE_SLOTS))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        builder = GraphBuilder(feats, c, measure=meas)
+        rep_s = timed_reps(torch, builder, c.r)
+        launches[name] = read_launches()
+        for kernel, ok in MEASURE_PATH.items():
+            check(ok(launches[name][kernel]), f"{name}: {kernel} launched "
+                  f"{launches[name][kernel]} times: {launches[name]}")
+        check(launches[name]["topk_merge"] == c.r,
+              f"{name}: topk_merge {launches[name]}")
+        stats = builder.stats
+        state = builder.slab_state()
+        live = state.nbr >= 0
+        check(bool(torch.isfinite(state.w[live]).all())
+              and bool((state.nbr < N_MEASURE).all())
+              and bool(live.any()), f"{name}: slabs out of range")
+        cache = builder._backend.pair_cache
+        runs[name] = {
+            "seconds_per_rep": rep_s,
+            "reps_seconds": sum(rep_s),
+            "comparisons": stats["comparisons"],
+            "emitted": stats["emitted"],
+            "expensive_comparisons": stats["expensive_comparisons"],
+            "cache_hits": stats.get("cache_hits"),
+            "cache_misses": stats.get("cache_misses"),
+            "cache_evictions": stats.get("cache_evictions"),
+            "embed_rows": stats["embed_rows"],
+            "cache_bytes": None if cache is None else cache.nbytes,
+            "slab_edges": int(live.sum()),
+            "peak_device_bytes": torch.cuda.max_memory_allocated(),
+            "launches": launches[name]}
+        slabs[name] = (state.nbr, state.w)
+        del builder, state, live, cache
+    off, on = runs["e2e_learned"], runs["e2e_learned_cache"]
+    check(off["expensive_comparisons"] == off["comparisons"] > 0,
+          f"e2e_learned: cache-off metering {off}")
+    check(on["comparisons"] == off["comparisons"]
+          and on["cache_hits"] + on["cache_misses"] == on["comparisons"]
+          and on["expensive_comparisons"] == on["cache_misses"],
+          f"e2e_learned: cache accounting {on}")
+    # the slabs' equality below must cover scores served from the cache
+    check(on["cache_hits"] > 0 and on["cache_evictions"] > 0,
+          f"e2e_learned: the cache never hit or never evicted: {on}")
+    (a_nbr, a_w), (b_nbr, b_w) = slabs["e2e_learned"], \
+        slabs["e2e_learned_cache"]
+    equal = torch.equal(a_nbr, b_nbr) and torch.equal(
+        a_w.view(torch.int32), b_w.view(torch.int32))
+    check(equal, "e2e_learned: the cache-on slabs differ from cache-off")
+    emit({"phase": "e2e_learned", "n": N_MEASURE, "d": 100, "nnz": 16,
+          "measure": "learned (raw pair features)", "family": "mixture",
+          "m": cfg.family.m, "r": cfg.r, "window": cfg.window,
+          "leaders": cfg.leaders, "degree_cap": cfg.degree_cap,
+          "chunk_windows": score_chunk_rows(
+              meas, feats, cfg.leaders * cfg.window, "cuda"),
+          "pair_cache_slots": PAIR_CACHE_SLOTS,
+          "precompute_seconds": precompute_s, "cache_off": off,
+          "cache_on": on, "slabs_equal": equal})
+    del slabs, a_nbr, a_w, b_nbr, b_w, feats, meas
+    torch.cuda.empty_cache()
+    return launches
+
+
+def exact_jaccard_neighbours(torch, feats, queries, k=10):
+    """Top-k Jaccard neighbours of the query sets among all of feats."""
+    from repro_torch.similarity.measures import jaccard_pairwise
+    out = []
+    for q in queries.split(64):
+        sims = jaccard_pairwise(feats.set_idx[q], feats.set_w[q],
+                                feats.set_mask[q], feats.set_idx,
+                                feats.set_w, feats.set_mask)
+        sims[torch.arange(q.shape[0], device=q.device), q] = float("-inf")
+        out += list(sims.topk(k, dim=1).indices.cpu().numpy())
+    return out
+
+
+def phase_e2e_jaccard(torch) -> dict:
+    """The Wikipedia pipeline at n = 2**20: weighted-MinHash (M = 3)
+    SortingLSH Stars over the exact weighted Jaccard, r = 25, W = 250,
+    s = 25, cap 250; the first repetition's weighted MinHash words
+    against the CPU's; then, on the first 2**14 sets, the exact Jaccard
+    AllPair sweep beside Stars (the comparison ratio and two-hop
+    recall@10 against exact Jaccard neighbours).  Returns the launch
+    counts by path."""
+    from repro_torch import (GraphBuilder, HashFamilyConfig, StarsConfig,
+                             make_measure)
+    from repro_torch.core import lsh
+    from repro_torch.core.stars import score_chunk_rows
+    feats = wikipedia_sets(torch, N_MEASURE)
+    cfg = StarsConfig(measure="jaccard",
+                      family=HashFamilyConfig("wminhash", m=3))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    builder = GraphBuilder(feats, cfg)
+    rep_s = timed_reps(torch, builder, cfg.r)
+    launches = {"e2e_jaccard": read_launches()}
+    for kernel, ok in MEASURE_PATH.items():
+        check(ok(launches["e2e_jaccard"][kernel]),
+              f"e2e_jaccard: {kernel}: {launches['e2e_jaccard']}")
+    stats = builder.stats
+    peak = torch.cuda.max_memory_allocated()
+    state = builder.slab_state()
+    live = state.nbr >= 0
+    check(bool(live.any()) and bool((state.w[live] >= 0).all())
+          and bool(torch.isfinite(state.w[live]).all()),
+          "e2e_jaccard: Jaccard weights negative or not finite")
+    del builder, state, live
+    # the exponential race's argmin on the card against the CPU's, for
+    # the first repetition's sketch
+    on_card = lsh.sketch(feats, cfg.family, rep_seed=cfg.seed).cpu()
+    on_cpu = lsh.sketch(feats.map(lambda t: t.cpu()), cfg.family,
+                        rep_seed=cfg.seed)
+    words, flips = on_cpu.numel(), int((on_card != on_cpu).sum())
+    del on_card, on_cpu
+    row = {"phase": "e2e_jaccard", "n": N_MEASURE, "nnz": 32,
+           "measure": "jaccard", "family": "wminhash", "m": cfg.family.m,
+           "r": cfg.r, "window": cfg.window, "leaders": cfg.leaders,
+           "degree_cap": cfg.degree_cap,
+           "chunk_windows": score_chunk_rows(
+               make_measure("jaccard"), feats, cfg.leaders * cfg.window,
+               "cuda"),
+           "seconds_per_rep": rep_s,
+           "reps_seconds": sum(rep_s), "comparisons": stats["comparisons"],
+           "emitted": stats["emitted"], "peak_device_bytes": peak,
+           "wminhash_words_compared": words,
+           "wminhash_words_differing_from_cpu": flips,
+           "launches": launches["e2e_jaccard"]}
+    emit(row)
+    # the exact sweep and Stars on the first N_JACCARD_SWEEP sets
+    n = N_JACCARD_SWEEP
+    sub = feats.map(lambda t: t[:n].contiguous())
+    truth = lambda q: exact_jaccard_neighbours(torch, sub, q)
+    sweep = StarsConfig(source="allpairs", measure="jaccard")
+    blocks = -(-n // sweep.allpairs_block)
+    launches["e2e_jaccard_allpairs"], b, ap = run_build(
+        torch, "e2e_jaccard_allpairs", sub, sweep,
+        {**MEASURE_PATH,
+         "topk_merge": lambda c: c == blocks * (blocks + 1) // 2},
+        truth=truth)
+    del b
+    check(ap["comparisons"] == n * (n - 1) // 2,
+          f"e2e_jaccard_allpairs: {ap['comparisons']} comparisons")
+    check(ap["two_hop_recall_at_10"] >= 0.99,
+          f"e2e_jaccard_allpairs: recall {ap['two_hop_recall_at_10']}")
+    launches["e2e_jaccard_stars"], b, st = run_build(
+        torch, "e2e_jaccard_stars", sub, cfg, MEASURE_PATH, truth=truth)
+    del b
+    emit({"phase": "e2e_jaccard_allpairs_vs_stars", "n": n,
+          "comparisons_allpairs": ap["comparisons"],
+          "comparisons_stars": st["comparisons"],
+          "comparison_ratio": ap["comparisons"] / st["comparisons"],
+          "recall_allpairs": ap["two_hop_recall_at_10"],
+          "recall_stars": st["two_hop_recall_at_10"]})
+    del feats, sub
     torch.cuda.empty_cache()
     return launches
 
@@ -1466,71 +1731,21 @@ def phase_lm(torch) -> dict:
     return launches
 
 
-def phase_parity(torch, name, cfg, n=20_000, session=False) -> None:
-    """One config built on CUDA and on the CPU from the same points: the
-    stats equal, the edges equal up to slab-boundary near-ties.  With
-    ``session`` the build is the lifecycle of e2e_session on 7/8 and 1/8
-    of the points, and each device's delta replays onto its checkpoint.
-    The exact 'allpairs' sweep is also rebuilt on CUDA with TF32 allowed,
-    to the same weight bits."""
-    import numpy as np
-    from repro_torch import GraphBuilder
-    from repro_torch.graph.accumulator import to_host
-    from repro_torch.service.delta import apply_delta
-    from repro_torch.testing import compare_builds, slab_boundary
-    d = 128
-    x = clustered_points(torch, n, d, classes=1000, spread=0.05,
-                         seed=SEED + 3, device="cuda")
-    n0 = n * 7 // 8 if session else n
-    builds, tie_rows = {}, {}
-    for device in ("cuda", "cpu"):
-        xd = x.to(device)
-        t = time.perf_counter()
-        b = GraphBuilder(xd[:n0], cfg, device=device).add_reps()
-        if session:
-            ckpt, _ = session_steps(torch, b, xd[n0:], cfg.r)
-        g = b.finalize()
-        slabs = to_host(b.slab_state())[:2]
-        if session:
-            tie_rows[device] = check_replay(
-                torch, f"{name} ({device})",
-                apply_delta(ckpt.nbr, ckpt.w, b.finalize(delta=True)), slabs)
-        builds[device] = (g, slab_boundary(*slabs), time.perf_counter() - t)
-    (g_gpu, bound_gpu, s_gpu), (g_cpu, bound_cpu, s_cpu) = \
-        builds["cuda"], builds["cpu"]
-    extra = {}
-    if cfg.source_name == "allpairs":
-        # the sweep's products stay IEEE fp32 in a process that allows
-        # TF32 (its weights would lose 13 mantissa bits otherwise)
-        torch.backends.cuda.matmul.allow_tf32 = True
-        try:
-            b = GraphBuilder(x, cfg, device="cuda").add_reps()
-        finally:
-            torch.backends.cuda.matmul.allow_tf32 = False
-        tf32 = b.finalize()
-        check(np.array_equal(tf32.src, g_gpu.src)
-              and np.array_equal(tf32.dst, g_gpu.dst)
-              and np.array_equal(tf32.w.view(np.int32),
-                                 g_gpu.w.view(np.int32)),
-              f"{name}: the sweep's weights change when TF32 is allowed")
-        extra["tf32_allowed_equal"] = True
-    diff = compare_builds(g_gpu, g_cpu, bound_gpu, bound_cpu)
-    emit({"phase": "parity", "config": name, "n": n,
-          **({"n_base": n0, "refresh_reps": g_gpu.stats["refresh_reps"],
-              "replayed_rows_tie_ordered": tie_rows} if session else {}),
-          "slab_capacity": cfg.slab_capacity(n), "cuda_seconds": s_gpu,
-          "cpu_seconds": s_cpu,
-          "comparisons": [g_gpu.stats["comparisons"],
-                          g_cpu.stats["comparisons"]],
-          "prefilter_ops": [g_gpu.stats.get("prefilter_ops"),
-                            g_cpu.stats.get("prefilter_ops")], **extra,
-          **diff})
-    check(g_gpu.stats == g_cpu.stats,
-          f"{name}: stats differ between CUDA and CPU builds")
-    check(diff["unexplained"] == 0,
-          f"{name}: edge sets differ beyond slab-boundary near-ties: {diff}")
-    check(diff["max_weight_diff"] <= 1e-6, f"{name}: edge weights differ: "
-          f"{diff}")
+# The parity builds: each config built on CUDA here and on the CPU in a
+# worker process (``--parity-worker``, no card visible, PARITY_THREADS
+# torch threads) that the script starts once the kernels are checked.
+# The worker's CPU builds (about 450 s of a slow host's run) then overlap
+# the card's phases; the parity phase builds on CUDA, waits for the
+# worker and compares.  Both sides take the same inputs, drawn on the
+# card and written to PARITY_DIR.
+PARITY_DIR = ROOT / "build" / "parity"
+PARITY_THREADS = 5
+PARITY_WORKER_TIMEOUT = 900
+# Parity of the measure layer (tests/test_torch_learned_build.py's configs
+# at n = 20,000, r = 3): the set measures, then the learned measure as a
+# session with an extend and a restore
+N_MEASURE_PARITY = 20_000
+MEASURE_PARITY_R = 3
 
 
 def parity_configs():
@@ -1561,6 +1776,305 @@ def session_parity_configs():
             "session-prefilter": (StarsConfig(**PREFILTER), 20_000)}
 
 
+def measure_parity_configs():
+    """name -> spec of each measure-layer parity build: its config, its
+    inputs ('prod' products-like points, 'wiki' Wikipedia-like sets at
+    N_MEASURE_PARITY, 'wiki5k' 5,000 sets of 8), its learned measure
+    (None, 'raw' or 'embed' pair features), whether it is a session and
+    its weight tolerance."""
+    import dataclasses
+    from repro_torch import HashFamilyConfig, StarsConfig
+    mix16 = HashFamilyConfig("mixture", m=16)
+    base = dict(r=MEASURE_PARITY_R)
+    raw = StarsConfig(measure="learned", family=mix16, **base)
+    spec = lambda cfg, data, measure=None, session=False, tol=1e-6: dict(
+        cfg=cfg, data=data, measure=measure, session=session, tol=tol)
+    return {
+        "jaccard-wminhash": spec(StarsConfig(
+            measure="jaccard", family=HashFamilyConfig("wminhash", m=3),
+            **base), "wiki"),
+        "mixture-sorting": spec(StarsConfig(
+            measure="mixture", family=mix16, **base), "prod"),
+        "mixture-lsh-stars": spec(StarsConfig(
+            measure="mixture", **{**LSH_STARS, "family": mix16, **base}),
+            "prod"),
+        "jaccard-allpairs": spec(StarsConfig(
+            source="allpairs", measure="jaccard"), "wiki5k"),
+        "learned-raw": spec(raw, "prod", "raw", True, 1e-5),
+        "learned-raw-cache": spec(dataclasses.replace(
+            raw, pair_cache_slots=1 << 20), "prod", "raw", True, 1e-5),
+        "learned-embed": spec(StarsConfig(
+            measure="learned", family=HashFamilyConfig("simhash", m=16),
+            **base), "prod", "embed", True, 1e-5),
+        "learned-prefilter": spec(dataclasses.replace(
+            raw, hamming_prefilter_bits=64, hamming_prefilter_max=28),
+            "prod", "raw", tol=1e-5)}
+
+
+def parity_jobs():
+    """name -> spec of every parity build, in order (the dense configs'
+    specs carry their n and 'dense' as their inputs)."""
+    jobs = {}
+    for session, configs in ((False, parity_configs()),
+                             (True, session_parity_configs())):
+        for name, (cfg, n) in configs.items():
+            jobs[name] = dict(cfg=cfg, data="dense", n=n, measure=None,
+                              session=session, tol=1e-6)
+    jobs.update(measure_parity_configs())
+    return jobs
+
+
+LEARNED_PARITY = {"raw": {}, "embed": {"pair_features": "embed"}}
+
+
+def parity_inputs(torch) -> dict:
+    """Every parity build's inputs, drawn on the card and copied to the
+    host: the dense points by n, the set data as field dicts, and each
+    learned measure's parameters."""
+    out = {("dense", n): clustered_points(
+        torch, n, 128, classes=1000, spread=0.05, seed=SEED + 3,
+        device="cuda").cpu() for n in (20_000, 5_000)}
+    fields = lambda f: {k: (None if v is None else v.cpu())
+                        for k, v in vars(f).items()}
+    out["prod"] = fields(products_points(torch, N_MEASURE_PARITY))
+    out["wiki"] = fields(wikipedia_sets(torch, N_MEASURE_PARITY))
+    out["wiki5k"] = fields(wikipedia_sets(torch, 5_000, nnz=8))
+    for kind, kw in LEARNED_PARITY.items():
+        out[kind] = {k: v.cpu() for k, v in
+                     learned_measure(torch, **kw).params.items()}
+    return out
+
+
+def parity_build(torch, name, job, inputs, device) -> dict:
+    """One parity build of ``job`` on ``device``: its graph, slab
+    boundary (for near-ties), seconds, and, for a dense session, the rows
+    its delta replay left tie-ordered; on CUDA also the build's launch
+    counts.  A dense session is e2e_session's lifecycle on 7/8 and 1/8 of
+    the points with the delta replayed onto the checkpoint; a measure
+    session adds on 7/8, checkpoints, extends by the rest, and the
+    checkpoint restored and extended again must give the live slabs bit
+    for bit."""
+    from repro_torch import (GraphBuilder, LearnedMeasure,
+                             LearnedSimilarity, PointFeatures,
+                             TwoTowerConfig)
+    from repro_torch.graph.accumulator import to_host
+    from repro_torch.service.delta import apply_delta
+    from repro_torch.testing import slab_boundary
+    cfg, session = job["cfg"], job["session"]
+    if job["data"] == "dense":
+        x = inputs[("dense", job["n"])].to(device)
+        n0 = x.shape[0] * 7 // 8 if session else x.shape[0]
+        head, tail = x[:n0], x[n0:]
+    else:
+        feats = PointFeatures(**{k: None if v is None else v.to(device)
+                                 for k, v in inputs[job["data"]].items()})
+        n0 = feats.n * 7 // 8 if session else feats.n
+        head = feats.map(lambda t: t[:n0])
+        tail = feats.map(lambda t: t[n0:])
+    meas = None
+    if job["measure"] is not None:
+        model = LearnedSimilarity(TwoTowerConfig(
+            in_dim=100, **LEARNED_PARITY[job["measure"]]))
+        meas = LearnedMeasure(model, {k: v.to(device) for k, v in
+                                      inputs[job["measure"]].items()})
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        reset_launches()
+    t = time.perf_counter()
+    b = GraphBuilder(head, cfg, device=device, measure=meas).add_reps()
+    tie_rows = None
+    if session and job["data"] == "dense":
+        ckpt, _ = session_steps(torch, b, tail, cfg.r)
+    elif session:
+        ckpt = b.checkpoint()
+        b.extend(tail, reps=cfg.r)
+        resumed = GraphBuilder.restore(head, cfg, ckpt, device=device,
+                                       measure=meas)
+        resumed.extend(tail, reps=cfg.r)
+        a, c = b.slab_state(), resumed.slab_state()
+        check(torch.equal(a.nbr, c.nbr) and torch.equal(
+            a.w.view(torch.int32), c.w.view(torch.int32)),
+            f"{name} ({device}): the restored session's slabs differ")
+        del resumed
+    g = b.finalize()
+    launches = None
+    if cuda:
+        torch.cuda.synchronize()
+        launches = read_launches()
+    slabs = to_host(b.slab_state())[:2]
+    if session and job["data"] == "dense":
+        tie_rows = check_replay(
+            torch, f"{name} ({device})",
+            apply_delta(ckpt.nbr, ckpt.w, b.finalize(delta=True)), slabs,
+            device=device)
+    return dict(graph=g, bound=slab_boundary(*slabs), tie_rows=tie_rows,
+                seconds=time.perf_counter() - t, launches=launches)
+
+
+def check_parity(torch, name, job, gpu, cpu, extra=None) -> None:
+    """The CUDA and CPU builds of one job: the stats equal, the edges
+    equal up to slab-boundary near-ties, their weights within the job's
+    tolerance (scaled to the weights' size for the measures)."""
+    import numpy as np
+    from repro_torch.testing import compare_builds
+    g_gpu, g_cpu, cfg = gpu["graph"], cpu["graph"], job["cfg"]
+    tol = job["tol"]
+    if job["data"] != "dense":
+        tol *= max(1.0, float(np.abs(g_gpu.w).max()) if g_gpu.num_edges
+                   else 1.0)
+    diff = compare_builds(g_gpu, g_cpu, gpu["bound"], cpu["bound"], tol=tol)
+    row = {"phase": "parity", "config": name, "n": g_gpu.n}
+    if job["session"]:
+        row["n_base"] = g_gpu.n * 7 // 8
+    if job["data"] == "dense":
+        if job["session"]:
+            row.update(refresh_reps=g_gpu.stats["refresh_reps"],
+                       replayed_rows_tie_ordered={
+                           "cuda": gpu["tie_rows"], "cpu": cpu["tie_rows"]})
+        row["slab_capacity"] = cfg.slab_capacity(g_gpu.n)
+    else:
+        row.update(measure=cfg.measure, family=cfg.family.kind)
+    row.update({"cuda_seconds": gpu["seconds"],
+                "cpu_seconds": cpu["seconds"],
+                "comparisons": [g_gpu.stats["comparisons"],
+                                g_cpu.stats["comparisons"]],
+                "prefilter_ops": [g_gpu.stats.get("prefilter_ops"),
+                                  g_cpu.stats.get("prefilter_ops")]})
+    if job["data"] != "dense":
+        row.update(stats_cuda=g_gpu.stats, tolerance=tol,
+                   launches=gpu["launches"])
+    emit({**row, **(extra or {}), **diff})
+    check(g_gpu.stats == g_cpu.stats,
+          f"{name}: stats differ between CUDA and CPU builds")
+    check(g_gpu.num_edges > 0, f"{name}: no edges")
+    check(diff["unexplained"] == 0,
+          f"{name}: edge sets differ beyond slab-boundary near-ties: {diff}")
+    check(diff["max_weight_diff"] <= tol,
+          f"{name}: edge weights differ: {diff}")
+
+
+def tf32_sweep_check(torch, name, job, inputs, g_gpu) -> dict:
+    """The exact 'allpairs' sweep rebuilt on CUDA in a process that
+    allows TF32: its products stay IEEE fp32, so the same edges and
+    weight bits (they would lose 13 mantissa bits otherwise)."""
+    import numpy as np
+    from repro_torch import GraphBuilder
+    x = inputs[("dense", job["n"])].to("cuda")
+    torch.set_float32_matmul_precision("high")
+    try:
+        tf32 = GraphBuilder(x, job["cfg"], device="cuda").add_reps() \
+            .finalize()
+    finally:
+        torch.set_float32_matmul_precision("highest")
+    check(np.array_equal(tf32.src, g_gpu.src)
+          and np.array_equal(tf32.dst, g_gpu.dst)
+          and np.array_equal(tf32.w.view(np.int32), g_gpu.w.view(np.int32)),
+          f"{name}: the sweep's weights change when TF32 is allowed")
+    return {"tf32_allowed_equal": True}
+
+
+def start_parity_worker(torch):
+    """Write the parity inputs and start the CPU worker on them; returns
+    (inputs, process, its start on the host clock).  The worker is killed if the script exits first,
+    and dies with it."""
+    import atexit
+    import os
+    import pickle
+    import shutil
+    shutil.rmtree(PARITY_DIR, ignore_errors=True)
+    PARITY_DIR.mkdir(parents=True)
+    inputs = parity_inputs(torch)
+    with open(PARITY_DIR / "inputs.pkl", "wb") as f:
+        pickle.dump(inputs, f)
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": "",
+           "OMP_NUM_THREADS": str(PARITY_THREADS)}
+    with open(PARITY_DIR / "worker.log", "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()),
+             "--parity-worker"], env=env, stdout=log,
+            stderr=subprocess.STDOUT, cwd=str(ROOT))
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    emit({"phase": "parity_worker", "pid": proc.pid,
+          "threads": PARITY_THREADS, "jobs": len(parity_jobs())})
+    return inputs, proc, time.perf_counter()
+
+
+def parity_worker() -> int:
+    """``chip_smoke.py --parity-worker``: the CPU side of every parity
+    build, one result file a job in PARITY_DIR."""
+    import ctypes
+    import pickle
+    import signal
+    import torch
+    # die with the script (PR_SET_PDEATHSIG)
+    ctypes.CDLL(None).prctl(1, signal.SIGKILL)
+    torch.set_num_threads(PARITY_THREADS)
+    torch.set_float32_matmul_precision("highest")
+    with open(PARITY_DIR / "inputs.pkl", "rb") as f:
+        inputs = pickle.load(f)
+    for name, job in parity_jobs().items():
+        res = parity_build(torch, name, job, inputs, "cpu")
+        tmp = PARITY_DIR / f"{name}.cpu.tmp"
+        with open(tmp, "wb") as f:
+            pickle.dump(res, f)
+        tmp.rename(PARITY_DIR / f"{name}.cpu.pkl")
+        print(f"{name}: {res['seconds']:.1f} s", flush=True)
+    return 0
+
+
+def phase_parity(torch, inputs, worker, started) -> dict:
+    """Every parity build on CUDA, then the worker's CPU builds of the
+    same jobs, compared job by job.  Returns the launch counts of the
+    learned + prefilter build (the path that launches simhash_packed
+    before the expensive measure)."""
+    import pickle
+    jobs = parity_jobs()
+    gpu, extra = {}, {}
+    for name, job in jobs.items():
+        gpu[name] = parity_build(torch, name, job, inputs, "cuda")
+        if job["cfg"].source_name == "allpairs" and job["data"] == "dense":
+            extra[name] = tf32_sweep_check(torch, name, job, inputs,
+                                           gpu[name]["graph"])
+        torch.cuda.empty_cache()
+    t = time.perf_counter()
+    try:
+        rc = worker.wait(timeout=PARITY_WORKER_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        worker.kill()
+        rc = "timeout"
+    waited = time.perf_counter() - t
+    log = (PARITY_DIR / "worker.log").read_text()
+    emit({"phase": "parity_worker", "rc": rc,
+          "seconds_since_start": time.perf_counter() - started,
+          "waited_seconds": waited})
+    check(rc == 0, f"the CPU parity worker failed ({rc}): {log[-4000:]}")
+    for name, job in jobs.items():
+        with open(PARITY_DIR / f"{name}.cpu.pkl", "rb") as f:
+            cpu = pickle.load(f)
+        check_parity(torch, name, job, gpu[name], cpu, extra.get(name))
+    launches = gpu["learned-prefilter"]["launches"]
+    r = jobs["learned-prefilter"]["cfg"].r
+    check(launches["simhash_packed"] == 1
+          and launches["topk_merge"] == r
+          and launches["topk_merge_violations"] == 0
+          and launches["window_score"] == launches["leader_score"] == 0,
+          f"learned-prefilter: launches {launches}")
+    return launches
+
+
+def phase_parity_inline(torch, names) -> None:
+    """Development: the named parity jobs with both sides built in this
+    process, one after the other, compared as the parity phase does."""
+    jobs = parity_jobs()
+    inputs = parity_inputs(torch)
+    for name in names:
+        job = jobs[name]
+        check_parity(torch, name, job,
+                     parity_build(torch, name, job, inputs, "cuda"),
+                     parity_build(torch, name, job, inputs, "cpu"))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1568,8 +2082,7 @@ def main() -> int:
               "and has no CPU fallback", file=sys.stderr)
         return 2
     import repro_torch  # noqa: F401  (fails outside a checkout)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
     smi = phase_device(torch)
     phase_build()
     kernels = []
@@ -1577,6 +2090,7 @@ def main() -> int:
                   phase_simhash, phase_flash_attention):
         kernels.append(phase(torch))
         torch.cuda.empty_cache()
+    parity_inputs_, worker, started = start_parity_worker(torch)
     x = clustered_points(torch, N_E2E, D_E2E, classes=1000, spread=0.05,
                          seed=SEED, device="cuda")
     by_path = {"e2e": phase_e2e(torch, x),
@@ -1587,11 +2101,11 @@ def main() -> int:
                "e2e_allpairs": phase_e2e_allpairs(torch, x)}
     del x
     torch.cuda.empty_cache()
+    by_path.update(phase_e2e_learned(torch))
+    by_path.update(phase_e2e_jaccard(torch))
     by_path["lm_embed"] = phase_lm(torch)
-    for name, (cfg, n) in parity_configs().items():
-        phase_parity(torch, name, cfg, n)
-    for name, (cfg, n) in session_parity_configs().items():
-        phase_parity(torch, name, cfg, n, session=True)
+    by_path["parity_learned_prefilter"] = phase_parity(
+        torch, parity_inputs_, worker, started)
     for k in kernels:
         k["launches"] = sum(c[k["name"]] for c in by_path.values())
         k["launches_by_path"] = {p: c[k["name"]] for p, c in by_path.items()}
@@ -1612,4 +2126,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(parity_worker() if sys.argv[1:] == ["--parity-worker"]
+             else main())

@@ -13,7 +13,10 @@ from repro_torch.core.builder import GraphBuilder
 from repro_torch.core.lsh import HashFamilyConfig
 from repro_torch.core.spanner import Graph
 from repro_torch.core.stars import StarsConfig
+from repro_torch.similarity import (LearnedMeasure, LearnedSimilarity,
+                                    Measure, TwoTowerConfig, make_measure)
 from repro_torch.similarity.measures import PointFeatures
 
-__all__ = ["Graph", "GraphBuilder", "HashFamilyConfig", "PointFeatures",
-           "StarsConfig"]
+__all__ = ["Graph", "GraphBuilder", "HashFamilyConfig", "LearnedMeasure",
+           "LearnedSimilarity", "Measure", "PointFeatures", "StarsConfig",
+           "TwoTowerConfig", "make_measure"]

@@ -24,14 +24,20 @@ weighted by how long a window went unsampled (a host age ledger that
 replays the device's draw).  Checkpoints are full slab images or chains
 of :class:`repro_torch.service.delta.SlabDelta` records.
 
-Not ported yet: paged feature stores, the pair-score cache, learned and
-set measures, the mesh and ``cluster``; configs that need them raise
-``NotImplementedError``.
+Scoring goes through a :class:`repro_torch.similarity.measure.Measure`:
+the closed-form measures (cosine, dot, angular, Jaccard, mixture) by name,
+or a learned two-tower measure passed as ``measure=`` (its embeddings are
+computed once a point and kept beside the features) or as a legacy
+``learned_apply=`` closure.  ``cfg.pair_cache_slots`` > 0 keeps a
+device-resident pair-score cache for an expensive measure
+(:mod:`repro_torch.similarity.pair_cache`).
+
+Not ported yet: paged feature stores (``feature_store='paged'`` raises
+``NotImplementedError``), the mesh and ``cluster``.
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Callable, Dict, List, Optional
 
@@ -41,11 +47,13 @@ import torch
 from repro_torch import prng
 from repro_torch.core import windows as win_lib
 from repro_torch.core.spanner import Graph
-from repro_torch.core.stars import (StarsConfig, _prefilter_sketch,
+from repro_torch.core.stars import (StarsConfig, _emit, _prefilter_sketch,
                                     _rep_candidates, _rep_keys)
 from repro_torch.device import DeviceLike, as_tensor, resolve_device
 from repro_torch.graph import accumulator as acc_lib
 from repro_torch.service.delta import SlabDelta, diff_rows, replay_chain
+from repro_torch.similarity import pair_cache as pc_lib
+from repro_torch.similarity.measure import Measure, make_measure
 from repro_torch.similarity.measures import PointFeatures
 
 _COUNTERS = ("comparisons", "emitted", "prefilter_ops", "scored_windows")
@@ -57,108 +65,115 @@ class RepetitionSource:
     """Windowed LSH / SortingLSH repetitions (Stars 1/2 and non-Stars).
 
     One round is one repetition: sketch with a fresh hash draw, sort and
-    window, score the leader tiles and fold the masked candidate stream
-    into the slabs.  The prefilter's packed sketch is computed once per
-    bind, over all points, as in the JAX package.
+    window, score the leader tiles through the measure and fold the
+    masked candidate stream into the slabs.  The prefilter's packed
+    sketch is computed once per bind, over all points, as in the JAX
+    package.  ``measure_state`` is the measure's per-point state table
+    (the cached embeddings).  With a pair cache the round looks every
+    comparison lane up (``cmp``), takes cached scores on hits and
+    re-derives the emit mask from the weights after the cache
+    (``cmp & (w > r1)``, the in-stream formula), so cache-on builds equal
+    cache-off builds while ``expensive_comparisons`` counts only misses.
     """
 
-    def __init__(self, cfg: StarsConfig):
+    def __init__(self, cfg: StarsConfig, measure: Measure):
         self.cfg = cfg
+        self.measure = measure
 
     def bind(self, features: PointFeatures, new_from: int,
-             refresh_below: int = 0,
-             refresh_fraction: float = 1.0) -> Callable:
+             refresh_below: int = 0, refresh_fraction: float = 1.0,
+             measure_state: Optional[torch.Tensor] = None) -> Callable:
         cfg = self.cfg
+        measure = self.measure
         prefilter = (
             _prefilter_sketch(features, cfg.hamming_prefilter_bits, cfg.seed)
             if cfg.hamming_prefilter_bits > 0 else None)
 
         def round_step(state: acc_lib.EdgeAccumulator, rep_index: int,
-                       probs: Optional[np.ndarray] = None):
+                       probs: Optional[np.ndarray] = None,
+                       cache: Optional[pc_lib.PairCache] = None):
             out = _rep_candidates(cfg, features, prefilter, rep_index,
                                   new_from=new_from,
                                   refresh_below=refresh_below,
                                   refresh_fraction=refresh_fraction,
-                                  refresh_probs=probs)
-            state = acc_lib.accumulate(state, out["src"], out["dst"],
-                                       out["w"], out["emit"])
-            return state, {k: out[k] for k in _COUNTERS}
+                                  refresh_probs=probs, measure=measure,
+                                  state=measure_state)
+            counters = {k: out[k] for k in _COUNTERS}
+            w, emit = out["w"], out["emit"]
+            if cache is not None:
+                w, cache, hits, misses, evictions = pc_lib.lookup_insert(
+                    cache, out["src"], out["dst"], w, out["cmp"])
+                # a hit is the bit-identical score the tile computed, so
+                # the in-stream emit lanes come back exactly
+                emit = _emit(out["cmp"], w, cfg.r1)
+                counters.update(emitted=emit.sum(dtype=torch.int64),
+                                expensive_comparisons=misses,
+                                cache_hits=hits, cache_misses=misses,
+                                cache_evictions=evictions)
+            state = acc_lib.accumulate(state, out["src"], out["dst"], w,
+                                       emit)
+            return state, counters, cache
 
         return round_step
-
-
-def _normalize(x: torch.Tensor) -> torch.Tensor:
-    """Rows over sqrt(sum x^2 + 1e-12), the JAX package's cosine rows."""
-    return x / torch.sqrt((x * x).sum(-1, keepdim=True) + 1e-12)
-
-
-@contextlib.contextmanager
-def _ieee_fp32_matmul():
-    """fp32 matmuls in IEEE single precision inside the block, whatever
-    the process set (TF32 would round the products to a 10-bit mantissa);
-    the setting is restored after."""
-    prior = torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision("highest")
-    try:
-        yield
-    finally:
-        torch.set_float32_matmul_precision(prior)
 
 
 class AllPairsSource:
     """The exact *AllPair* sweep: all n (n - 1) / 2 pairs, in blocks.
 
     One round is one sweep over (block x block) tiles a0 <= b0, each
-    scored by one ``torch.matmul`` of the (normalised) rows in fp32, as
-    the JAX package computes it outside any kernel (never TF32, whatever
-    the process's matmul precision), and folded into the slabs by
-    ``accumulate`` (so through ``topk_merge``) at once.  On an extension
+    scored through the measure (with the rows' state for a stateful one)
+    and folded into the slabs by ``accumulate`` (so through
+    ``topk_merge``) at once.  The JAX package scores them outside any
+    kernel; here cosine / dot are one ``torch.matmul`` of the
+    (normalised) rows in IEEE fp32, never TF32, whatever the process's
+    matmul precision.  On an extension
     round only tiles that touch a new point are visited and the pair mask
     keeps new-vs-all pairs: C(n, 2) - C(n_old, 2) comparisons.
     """
 
-    def __init__(self, cfg: StarsConfig):
+    def __init__(self, cfg: StarsConfig, measure: Measure):
         self.cfg = cfg
+        self.measure = measure
 
     def bind(self, features: PointFeatures, new_from: int,
-             refresh_below: int = 0,
-             refresh_fraction: float = 1.0) -> Callable:
+             refresh_below: int = 0, refresh_fraction: float = 1.0,
+             measure_state: Optional[torch.Tensor] = None) -> Callable:
         if refresh_below > 0:
             raise ValueError("the exact 'allpairs' source has no sampling "
                              "staleness to refresh")
         cfg = self.cfg
+        measure = self.measure
         n = features.n
         block = min(cfg.allpairs_block, max(n, 1))
-        dense = features.dense
-        dev = dense.device
-        span = torch.arange(block, dtype=torch.int64, device=dev)
-        rows = _normalize if cfg.measure == "cosine" else (lambda x: x)
+        span = torch.arange(block, dtype=torch.int64, device=features.device)
+
+        def score(ids_a, ids_b):
+            ca, cb = ids_a.clamp_max(n - 1), ids_b.clamp_max(n - 1)
+            fa, fb = features.take(ca), features.take(cb)
+            if measure_state is not None:
+                return measure(fa, fb, measure_state[ca], measure_state[cb])
+            return measure(fa, fb)
 
         def block_step(state, a0: int, b0: int):
             ids_a, ids_b = a0 + span, b0 + span
-            fa = rows(dense[ids_a.clamp_max(n - 1)])
-            fb = rows(dense[ids_b.clamp_max(n - 1)])
-            with _ieee_fp32_matmul():
-                sims = torch.matmul(fa, fb.T)
+            sims = score(ids_a, ids_b).to(torch.float32)
             keep = (ids_a[:, None] < ids_b[None, :]) & (ids_b[None, :] < n)
             if new_from > 0:
                 keep &= ids_b[None, :] >= new_from   # the new side
-            if cfg.r1 is not None:
-                keep &= sims > torch.tensor(cfg.r1, dtype=torch.float32,
-                                            device=dev)
+            keep = _emit(keep, sims, cfg.r1)
             aa = ids_a[:, None].expand(block, block)
             bb = ids_b[None, :].expand(block, block)
             return acc_lib.accumulate(state, aa, bb, sims, keep)
 
-        def round_step(state, rep_index: int, probs=None):
-            del rep_index, probs                     # the sweep is exact
+        def round_step(state, rep_index: int, probs=None, cache=None):
+            del rep_index, probs, cache              # the sweep is exact
             for a0 in range(0, n, block):
                 for b0 in range(a0, n, block):
                     if new_from > 0 and b0 + block <= new_from:
                         continue                     # both endpoints old
                     state = block_step(state, a0, b0)
             comps = n * (n - 1) // 2 - new_from * (new_from - 1) // 2
-            return state, {"comparisons": comps}
+            return state, {"comparisons": comps}, None
 
         return round_step
 
@@ -173,15 +188,33 @@ CANDIDATE_SOURCES: Dict[str, Callable] = {
 
 
 class _SingleDeviceBackend:
-    """The dense feature table and the slab state on one device."""
+    """The feature table, the measure's state table and the slab state on
+    one device.
 
-    def __init__(self, features: PointFeatures, cfg: StarsConfig):
+    A stateful measure's per-point state (the learned measure's tower
+    embeddings) is computed once per build and, after an ``extend``, for
+    the appended rows only (``ensure_measure_state``).  With
+    ``cfg.pair_cache_slots`` > 0 the windowed rounds thread a pair-score
+    cache (expensive measures only); gids are append-only, so it stays
+    valid across an ``extend``.
+    """
+
+    def __init__(self, features: PointFeatures, cfg: StarsConfig,
+                 measure: Measure):
         name = cfg.source_name
         if name not in CANDIDATE_SOURCES:
             raise ValueError(f"unknown candidate source {name!r}; "
                              f"known: {sorted(CANDIDATE_SOURCES)}")
         self.features = features
-        self.source = CANDIDATE_SOURCES[name](cfg)
+        self.measure = measure
+        self.source = CANDIDATE_SOURCES[name](cfg, measure)
+        # GraphBuilder admits the cache for an expensive measure over the
+        # windowed sources only
+        self.pair_cache = (
+            pc_lib.create(cfg.pair_cache_slots, device=features.device)
+            if cfg.pair_cache_slots > 0 else None)
+        self.state_table: Optional[torch.Tensor] = None
+        self._embedded = 0          # rows whose measure state is current
         # (new_from, refresh_below, refresh_fraction) -> bound round;
         # cleared by extend() (the table changed)
         self._bound: Dict = {}
@@ -197,20 +230,43 @@ class _SingleDeviceBackend:
     def grow_state(self, state, n: int, capacity: int):
         return acc_lib.grow(state, n, capacity)
 
+    def ensure_measure_state(self) -> int:
+        """Run the measure's precompute over the rows not yet embedded
+        (all of them first, then an extend's tail); returns how many rows
+        it embedded (0 for a stateless measure)."""
+        if self.measure.state_width is None:
+            return 0
+        n, lo = self.n, self._embedded
+        if n <= lo:
+            return 0
+        if lo == 0:
+            self.state_table = self.measure.precompute(self.features)
+        else:
+            tail = self.features.map(lambda x: x[lo:n])
+            self.state_table = torch.cat(
+                [self.state_table, self.measure.precompute(tail)])
+        self._embedded = n
+        self._bound = {}
+        return n - lo
+
     def run_round(self, state, rep_index: int, new_from: int,
                   refresh_below: int = 0, refresh_fraction: float = 1.0,
                   refresh_probs: Optional[np.ndarray] = None):
         key = (new_from, refresh_below, refresh_fraction)
         if key not in self._bound:
             self._bound[key] = self.source.bind(
-                self.features, new_from, refresh_below, refresh_fraction)
-        return self._bound[key](state, rep_index, refresh_probs)
+                self.features, new_from, refresh_below, refresh_fraction,
+                measure_state=self.state_table)
+        state, counters, self.pair_cache = self._bound[key](
+            state, rep_index, refresh_probs, self.pair_cache)
+        return state, counters
 
-    def extend(self, dense: torch.Tensor) -> None:
+    def extend(self, new_features: PointFeatures) -> None:
         """Append rows to the table on its device (the resident store's
-        ``append``); the rows keep their dtype."""
-        self.features = PointFeatures(
-            dense=torch.cat([self.features.dense, dense]).contiguous())
+        ``append``); the rows keep their dtypes."""
+        if not isinstance(new_features, PointFeatures):
+            new_features = PointFeatures(dense=new_features)
+        self.features = self.features.concat(new_features)
         self._bound = {}
 
 
@@ -222,23 +278,31 @@ def _refresh_window_count(cfg: StarsConfig, n: int) -> int:
 
 def _check_ported(cfg: StarsConfig) -> None:
     """Reject configs whose paths this port does not run yet, up front."""
-    unported = {
-        "feature_store": (cfg.feature_store, "resident"),
-        "pair_cache_slots": (cfg.pair_cache_slots, 0),
-    }
-    for field, (value, default) in unported.items():
-        if value != default:
-            raise NotImplementedError(
-                f"StarsConfig.{field}={value!r} is not ported yet (only "
-                f"{default!r}): it comes with a later slice of the port")
-    if cfg.measure not in ("cosine", "dot"):
+    if cfg.feature_store != "resident":
         raise NotImplementedError(
-            f"measure={cfg.measure!r} is not ported yet (only dense "
-            "'cosine' and 'dot')")
-    if cfg.family.kind != "simhash":
-        raise NotImplementedError(
-            f"hash family {cfg.family.kind!r} is not ported yet (only "
-            "'simhash')")
+            f"StarsConfig.feature_store={cfg.feature_store!r} is not ported "
+            "yet (only 'resident'): it comes with a later slice of the port")
+
+
+def _as_features(features, device: torch.device) -> PointFeatures:
+    """The session's PointFeatures on ``device``: a PointFeatures or a bare
+    (n, d) dense array or tensor.  Dense float64 is taken as float32 (as
+    the JAX package does without x64), set ids as int32, set weights as
+    float32, the set mask as bool."""
+    if not isinstance(features, PointFeatures):
+        features = PointFeatures(dense=features)
+    dense = None
+    if features.dense is not None:
+        dense = as_tensor(features.dense, device=device)
+        if dense.is_floating_point() and dense.dtype != torch.float32:
+            dense = dense.to(torch.float32)
+    block = lambda x, dt: (None if x is None
+                           else as_tensor(x, device=device, dtype=dt))
+    return PointFeatures(
+        dense=dense, set_idx=block(features.set_idx, torch.int32),
+        set_w=block(features.set_w, torch.float32),
+        set_mask=block(features.set_mask, torch.bool)).map(
+            lambda x: x.contiguous())
 
 
 @dataclasses.dataclass
@@ -261,7 +325,9 @@ class BuilderCheckpoint:
     ``refresh_*`` carry the staleness-repair state (watermark, refresh
     rounds run, the automatic policy's fractional credit, the per-window
     ages), so a restored session refreshes as the uncheckpointed one.
-    ``measure_fingerprint`` is None for the ported (closed-form) measures.
+    ``measure_fingerprint`` is the session measure's
+    :meth:`Measure.fingerprint` (None for the closed-form measures);
+    ``restore`` refuses a session under another one.
     """
 
     n: int
@@ -285,13 +351,19 @@ class GraphBuilder:
     """A graph-build session owning device-resident degree slabs.
 
     Args:
-      features: PointFeatures, a tensor or an (n, d) array of dense
-                features (float64 is taken as float32, as the JAX package
-                does without x64).
+      features: PointFeatures (dense and / or set blocks), or a tensor or
+                an (n, d) array of dense features (float64 is taken as
+                float32, as the JAX package does without x64).
       cfg:      StarsConfig; ``cfg.source_name`` selects the candidate
                 source, ``cfg.degree_cap`` sizes the slabs.
       device:   where the session runs: ``None`` means CUDA, and raises
                 without a card; ``"cpu"`` runs the plain versions.
+      measure:  for ``cfg.measure='learned'``: a
+                :class:`repro_torch.similarity.measure.LearnedMeasure`
+                (embeddings cached a point, the checkpoint fingerprint)
+                or any Measure; its parameters move to ``device``.
+      learned_apply: a legacy ``(fa, fb) -> sims`` closure for
+                ``measure='learned'``: every tile pays the whole model.
     """
 
     # Per-round counters stay on the device and are summed to host ints
@@ -299,8 +371,14 @@ class GraphBuilder:
     COUNTER_ROLLUP_EVERY = 8
 
     def __init__(self, features, cfg: StarsConfig, *,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 learned_apply: Optional[Callable] = None,
+                 measure: Optional[Measure] = None):
         _check_ported(cfg)
+        if measure is not None and learned_apply is not None:
+            raise ValueError(
+                "pass either measure= or the legacy learned_apply=, not "
+                "both (they would name two different scoring functions)")
         if cfg.refresh_rate < 0:
             raise ValueError(f"refresh_rate must be >= 0: {cfg.refresh_rate}")
         if cfg.refresh_rate > 0 and not cfg.refresh_fraction > 0:
@@ -310,13 +388,24 @@ class GraphBuilder:
                 "sample no window and repair nothing")
         self.cfg = cfg
         self.device = resolve_device(device)
-        dense = features.dense if isinstance(features, PointFeatures) \
-            else features
-        dense = as_tensor(dense, device=self.device)
-        if dense.is_floating_point() and dense.dtype != torch.float32:
-            dense = dense.to(torch.float32)
+        self._measure = make_measure(
+            cfg.measure, alpha=cfg.mixture_alpha,
+            learned=measure if measure is not None else learned_apply
+        ).to(self.device)
+        self._cache_on = cfg.pair_cache_slots > 0
+        if self._cache_on:
+            if not self._measure.expensive:
+                raise ValueError(
+                    f"pair_cache_slots={cfg.pair_cache_slots} only pays "
+                    f"for an expensive (learned) measure; "
+                    f"measure={cfg.measure!r} is closed-form")
+            if cfg.source_name == "allpairs":
+                raise ValueError(
+                    "the exact 'allpairs' sweep scores every pair once: "
+                    "a pair cache cannot hit (set pair_cache_slots=0)")
+        self._embed_rows = 0
         self._backend = _SingleDeviceBackend(
-            PointFeatures(dense=dense.contiguous()), cfg)
+            _as_features(features, self.device), cfg, self._measure)
         self._reps_done = 0
         self._counters: List[Dict] = []
         self._stats_base: Dict[str, int] = {}
@@ -342,6 +431,11 @@ class GraphBuilder:
     def n(self) -> int:
         """Number of points in the session."""
         return self._backend.n
+
+    @property
+    def measure(self) -> Measure:
+        """The session's similarity Measure (two-phase contract)."""
+        return self._measure
 
     @property
     def reps_done(self) -> int:
@@ -378,22 +472,32 @@ class GraphBuilder:
         self._run_rounds(reps, new_from=0, progress=progress)
         return self
 
-    def _validate_extend(self, dense) -> None:
+    def _validate_extend(self, nf: PointFeatures) -> None:
         """Refuse a batch the table cannot take, naming the argument."""
-        table = self._backend.features.dense
+        table = self._backend.features
+        for name in ("dense", "set_idx", "set_w", "set_mask"):
+            have, new = getattr(table, name), getattr(nf, name)
+            if (have is None) != (new is None):
+                raise ValueError(
+                    f"extend(new_features=...): the {name} block is "
+                    f"{'missing' if new is None else 'not in the table'}; "
+                    "the rows must carry the session's blocks")
+        dense = nf.dense
+        if dense is None:
+            return
         dtype = dense.dtype if isinstance(dense, torch.Tensor) else \
             torch.from_numpy(np.empty(0, np.asarray(dense).dtype)).dtype
-        if dtype != table.dtype:
+        if dtype != table.dense.dtype:
             raise ValueError(
                 f"extend(new_features=...): dense dtype {dtype} does not "
-                f"match the session's {table.dtype} table (append never "
-                "casts: cast rows would score differently from the "
+                f"match the session's {table.dense.dtype} table (append "
+                "never casts: cast rows would score differently from the "
                 "caller's originals)")
-        if tuple(dense.shape[1:]) != tuple(table.shape[1:]):
+        if tuple(dense.shape[1:]) != tuple(table.dense.shape[1:]):
             raise ValueError(
                 f"extend(new_features=...): rows of shape "
                 f"{tuple(dense.shape[1:])}, the session's are "
-                f"{tuple(table.shape[1:])}")
+                f"{tuple(table.dense.shape[1:])}")
 
     def extend(self, new_features, reps: Optional[int] = None, *,
                progress: Progress = None) -> "GraphBuilder":
@@ -419,16 +523,18 @@ class GraphBuilder:
                                  "new-vs-all sweep per extension")
         else:
             reps = self.cfg.r if reps is None else reps
-        dense = new_features.dense if isinstance(new_features, PointFeatures) \
-            else new_features
-        if not isinstance(dense, torch.Tensor):
-            dense = np.asarray(dense)
-        if dense.shape[0] == 0:
+        nf = new_features
+        if not isinstance(nf, PointFeatures):
+            nf = PointFeatures(dense=nf if isinstance(nf, torch.Tensor)
+                               else np.asarray(nf))
+        if nf.n == 0:
             # nothing to score, and the watermark must not move
             return self
-        self._validate_extend(dense)
+        self._validate_extend(nf)
         old_n = self.n
-        self._backend.extend(as_tensor(dense, device=self.device))
+        # the dense dtype was checked equal; set blocks take the
+        # session's canonical dtypes, as at construction
+        self._backend.extend(_as_features(nf, self.device))
         self._refresh_below = old_n
         self._run_rounds(reps, new_from=old_n, progress=progress)
         if self.cfg.refresh_rate > 0 and self.cfg.source_name != "allpairs":
@@ -473,6 +579,8 @@ class GraphBuilder:
     def _run_rounds(self, reps: int, new_from: int, *,
                     refresh_below: int = 0, refresh_fraction: float = 1.0,
                     progress: Progress = None) -> None:
+        # embed before any round binds: after an extend() only its rows
+        self._embed_rows += self._backend.ensure_measure_state()
         self._grow(self.n, self._reps_done + reps)
         refresh = refresh_below > 0
         for _ in range(reps):
@@ -552,6 +660,13 @@ class GraphBuilder:
         totals["reps"] = self._reps_done
         totals["refresh_reps"] = self._refresh_reps
         totals.setdefault("refresh_comparisons", 0)
+        if self._measure.expensive and not self._cache_on:
+            # without the cache every comparison pays the model; mirrored,
+            # not summed, so roll-ups cannot count it twice
+            totals["expensive_comparisons"] = totals.get("comparisons", 0)
+        if self._measure.state_width is not None:
+            # rows this session embedded (a restored session re-embeds all)
+            totals["embed_rows"] = self._embed_rows
         return totals
 
     def _roll_up_counters(self) -> Dict[str, int]:
@@ -648,7 +763,7 @@ class GraphBuilder:
             refresh_credit=self._refresh_credit,
             refresh_age=(None if self._refresh_age is None
                          else self._refresh_age.copy()),
-            **payload)
+            measure_fingerprint=self._measure.fingerprint(), **payload)
 
     def checkpoint(self, delta: bool = False) -> BuilderCheckpoint:
         """Snapshot the session to host arrays (resumable builds).
@@ -685,14 +800,19 @@ class GraphBuilder:
     @classmethod
     def restore(cls, features, cfg: StarsConfig, ckpt: BuilderCheckpoint, *,
                 base: Optional[BuilderCheckpoint] = None,
-                device: DeviceLike = None) -> "GraphBuilder":
+                device: DeviceLike = None,
+                learned_apply: Optional[Callable] = None,
+                measure: Optional[Measure] = None) -> "GraphBuilder":
         """Resume a session from a checkpoint (same features and config),
         on ``device`` (CUDA unless ``"cpu"``).
 
         A delta checkpoint also needs ``base=``, the full checkpoint its
         chain starts from, and restores by replaying the chain onto that
         image.  The restored session's delta stream is re-anchored at the
-        restored image.  A JAX package checkpoint goes through
+        restored image.  The measure (``measure=`` / ``learned_apply=`` as
+        for the constructor) must have the checkpoint's fingerprint: a
+        session resumed under other tower parameters would mix differently
+        scored edges.  A JAX package checkpoint goes through
         :func:`repro_torch.core.convert.checkpoint_from_reference` first.
         """
         if cfg != ckpt.cfg:
@@ -718,12 +838,15 @@ class GraphBuilder:
             ver = ckpt.ver
         else:
             nbr, w, ver = ckpt.nbr, ckpt.w, ckpt.ver
-        builder = cls(features, cfg, device=device)
-        if ckpt.measure_fingerprint is not None:
+        builder = cls(features, cfg, device=device,
+                      learned_apply=learned_apply, measure=measure)
+        fp_now = builder._measure.fingerprint()
+        if ckpt.measure_fingerprint != fp_now:
             raise ValueError(
-                "checkpoint was built under a keyed (learned) measure "
-                f"({ckpt.measure_fingerprint!r}); this session's "
-                f"{cfg.measure!r} measure has none")
+                "checkpoint was built under a different similarity "
+                f"measure (fingerprint {ckpt.measure_fingerprint!r} vs "
+                f"{fp_now!r}): resuming would mix differently scored "
+                "edges into the same slabs")
         if builder.n != ckpt.n:
             raise ValueError(f"checkpoint holds {ckpt.n} points, features "
                              f"have {builder.n}")

@@ -1,11 +1,20 @@
-"""SimHash sketches (the SimHash half of ``repro.core.lsh``).
+"""Locality-sensitive hash families (``repro.core.lsh``).
 
-h(x) = sign(<x, z>), z ~ N(0, I), M slots per repetition.  The projection
-is drawn with :mod:`repro_torch.prng` from the same key as the JAX
-package, so the sketch words agree bit for bit.  LSH mode folds a sketch
-into one bucket id (:func:`bucket_key`); the Hamming prefilter compares
-packed sketches (:func:`hamming_pairwise`).  MinHash, weighted MinHash
-and the mixture family come with the non-dense measures in a later slice.
+  * SimHash for cosine / angular similarity: h(x) = sign(<x, z>),
+    z ~ N(0, I).
+  * MinHash for Jaccard similarity over sets: h(A) = min_{u in A}
+    mix32(u ^ seed).
+  * Weighted MinHash by the Moulton-Jiang exponential race:
+    h(x) = argmin_u -log(r_u) / w_u, the winning element id.
+  * Mixture (the paper's D.2, Amazon2m): each of the M slots is a SimHash
+    bit or the low bit of a MinHash word, by a coin per slot.
+
+Every family's sketch is (n, M) uint32 words carried in int64; SimHash and
+mixture words are 0 or 1.  Draws come from :mod:`repro_torch.prng` and
+:mod:`repro_torch.core.hashing` with the JAX package's keys, so the words
+agree bit for bit.  LSH mode folds a sketch into one bucket id
+(:func:`bucket_key`); the Hamming prefilter compares packed SimHash
+sketches (:func:`hamming_pairwise`).
 """
 
 from __future__ import annotations
@@ -23,8 +32,9 @@ from repro_torch.similarity.measures import PointFeatures
 class HashFamilyConfig:
     """Sketching family: ``kind`` and sketch dimension ``m`` (M).
 
-    Same fields and defaults as ``repro.core.lsh.HashFamilyConfig``;
-    only ``kind='simhash'`` is ported so far.
+    Same fields and defaults as ``repro.core.lsh.HashFamilyConfig``:
+    ``kind`` is 'simhash', 'minhash', 'wminhash' or 'mixture';
+    ``mixture_sim_prob`` is the chance that a mixture slot is SimHash.
     """
 
     kind: str = "simhash"
@@ -75,29 +85,90 @@ def hamming_pairwise(packed_a: torch.Tensor,
     return x.sum(-1, dtype=torch.int32)
 
 
+def word_bits(cfg: HashFamilyConfig) -> int:
+    """Significant bits of one sketch word: 1 for the bit-valued families
+    (SimHash, mixture), 32 for the MinHash words."""
+    return 1 if cfg.kind in ("simhash", "mixture") else 32
+
+
+def _slot_seeds(m: int, rep_seed: int, device) -> torch.Tensor:
+    return hashing.hash_u32(torch.arange(m, dtype=torch.int64,
+                                         device=device), rep_seed)
+
+
+def minhash_words(set_idx: torch.Tensor, set_mask: torch.Tensor,
+                  seeds: torch.Tensor) -> torch.Tensor:
+    """Unweighted MinHash: (n, nnz) sets x (m,) seeds -> (n, m) words.
+
+    h_s(A) = min_{u in A} mix32(u ^ seed_s); an empty set hashes to
+    0xFFFFFFFF.  One slot at a time, so the (n, nnz) hash is the largest
+    temporary.
+    """
+    cols = [torch.where(set_mask, hashing.hash_u32(set_idx, seed),
+                        0xFFFFFFFF).amin(dim=1) for seed in seeds]
+    return torch.stack(cols, dim=1)
+
+
+def weighted_minhash_words(set_idx: torch.Tensor, set_w: torch.Tensor,
+                           set_mask: torch.Tensor,
+                           seeds: torch.Tensor) -> torch.Tensor:
+    """Moulton-Jiang exponential-race weighted MinHash: the winning element
+    id of ``-log(r_u) / w_u`` per slot, r_u consistent across points (a
+    tie goes to the first position, as ``jnp.argmin``); an empty set
+    hashes to 0xFFFFFFFF."""
+    w = set_w.clamp_min(1e-12)
+    inf = torch.tensor(float("inf"), dtype=w.dtype, device=w.device)
+    cols = []
+    for seed in seeds:
+        r = hashing.uniform01_from_u32(hashing.hash_u32(set_idx, seed))
+        race = torch.where(set_mask, -torch.log(r) / w, inf)
+        win = race.argmin(dim=1, keepdim=True)
+        cols.append(set_idx.gather(1, win)[:, 0].to(torch.int64)
+                    & 0xFFFFFFFF)
+    won = torch.stack(cols, dim=1)
+    return torch.where(set_mask.any(dim=1, keepdim=True), won, 0xFFFFFFFF)
+
+
 def sketch(features: PointFeatures, cfg: HashFamilyConfig, *,
            rep_seed: int) -> torch.Tensor:
-    """One repetition's sketch: (n, M) bool SimHash bits.
+    """One repetition's sketch: (n, M) uint32 words carried in int64.
 
-    ``rep_seed`` distinguishes repetitions, exactly as in the JAX package
-    (the key is ``fold_in(key(0), rep_seed)``).
+    ``rep_seed`` distinguishes repetitions, as in the JAX package (the
+    SimHash key is ``fold_in(key(0), rep_seed)``, the mixture's
+    ``fold_in(key(1), rep_seed)``).
     """
-    if cfg.kind != "simhash":
-        raise NotImplementedError(
-            f"hash family {cfg.kind!r} is not ported yet (only 'simhash'); "
-            "MinHash and the mixture family come with the non-dense "
-            "measures")
-    k = prng.fold_in(prng.key(0), rep_seed)
-    proj = prng.normal(k, (features.dense.shape[-1], cfg.m),
-                       device=features.device)
-    return simhash_bits(features.dense, proj)
+    m = cfg.m
+    rep_seed = int(rep_seed) & 0xFFFFFFFF
+    if cfg.kind == "simhash":
+        k = prng.fold_in(prng.key(0), rep_seed)
+        proj = prng.normal(k, (features.dense.shape[-1], m),
+                           device=features.device)
+        return simhash_bits(features.dense, proj).to(torch.int64)
+    if cfg.kind == "minhash":
+        return minhash_words(features.set_idx, features.set_mask,
+                             _slot_seeds(m, rep_seed, features.device))
+    if cfg.kind == "wminhash":
+        return weighted_minhash_words(
+            features.set_idx, features.set_w, features.set_mask,
+            _slot_seeds(m, rep_seed, features.device))
+    if cfg.kind == "mixture":
+        kc, kp = prng.split(prng.fold_in(prng.key(1), rep_seed))
+        dev = features.device
+        coin = prng.uniform(kc, (m,), device=dev) < torch.tensor(
+            cfg.mixture_sim_prob, dtype=torch.float32, device=dev)
+        proj = prng.normal(kp, (features.dense.shape[-1], m), device=dev)
+        sim = simhash_bits(features.dense, proj).to(torch.int64)
+        mh = minhash_words(features.set_idx, features.set_mask,
+                           _slot_seeds(m, rep_seed, dev))
+        # one bit of each MinHash word: the paper mixes bits of the two
+        return torch.where(coin[None, :], sim & 1, mh & 1)
+    raise ValueError(f"unknown hash family kind: {cfg.kind!r}")
 
 
-def bucket_key(bits: torch.Tensor, cfg: HashFamilyConfig) -> torch.Tensor:
-    """Fold an (n, M) SimHash sketch into one uint32 bucket id per point
-    (LSH mode, Stars 1), carried in int64: equal sketches, equal ids."""
-    if cfg.kind != "simhash":
-        raise NotImplementedError(
-            f"bucket_key for hash family {cfg.kind!r} is not ported yet "
-            "(only 'simhash')")
-    return hashing.fold_words(pack_bits(bits.to(torch.bool)))
+def bucket_key(words: torch.Tensor, cfg: HashFamilyConfig) -> torch.Tensor:
+    """Fold an (n, M) sketch into one uint32 bucket id per point (LSH mode,
+    Stars 1), carried in int64: equal sketches, equal ids.  Bit-valued
+    words are packed first, MinHash words fold directly."""
+    if cfg.kind in ("simhash", "mixture"):
+        return hashing.fold_words(pack_bits(words != 0))
+    return hashing.fold_words(words)

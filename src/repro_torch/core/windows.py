@@ -1,7 +1,7 @@
 """Sort-and-window machinery (``repro.core.windows``).
 
 SortingLSH mode (Stars 2): points sort lexicographically by their M
-SimHash bits with a random tiebreak, then a random shift r ~ [W/2, W]
+sketch words with a random tiebreak, then a random shift r ~ [W/2, W]
 offsets the window boundaries.  LSH mode (Stars 1): points sort by their
 folded bucket id with a random tiebreak, so buckets become contiguous
 runs cut into windows of at most W.  Windows are fixed (n_windows, W)
@@ -9,10 +9,12 @@ slot grids with a validity mask, exactly as in the JAX package.
 
 Two traps of the JAX program have no direct torch counterpart:
 
-  * ``lax.sort`` over several operands: the sort keys (the M sketch bits,
+  * ``lax.sort`` over several operands: the sort keys (the M sketch words,
     most significant first, or the 32-bit bucket id) and the 20-bit
-    tiebreak pack into one int64 key, and a stable sort over ascending
-    gids resolves the remaining ties by gid, as the JAX sort does.
+    tiebreak pack into int64 keys of at most 63 bits (one key for SimHash
+    bits, several for 32-bit MinHash words), sorted by a chain of stable
+    sorts, least significant key first; ascending gids resolve the
+    remaining ties, as in the JAX sort.
   * ``lax.top_k`` keeps the lower index on a tie and ``torch.topk`` does
     not; a stable descending sort does.
 """
@@ -20,7 +22,7 @@ Two traps of the JAX program have no direct torch counterpart:
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -89,39 +91,61 @@ def window_layout(mode: str, n: int, window: int,
     return window - r, window_slot_count(mode, n, window)
 
 
-def sort_key(bits: torch.Tensor, tiebreak: torch.Tensor,
-             tiebreak_bits: int) -> torch.Tensor:
-    """One int64 key per point: the M sketch bits, most significant first,
-    above the top ``tiebreak_bits`` of the uint32 tiebreak."""
-    n, m = bits.shape
-    if m + tiebreak_bits > 63:
-        raise NotImplementedError(
-            f"M={m} sketch bits + {tiebreak_bits} tiebreak bits do not "
-            "pack into one int64 sort key (needs M <= "
-            f"{63 - tiebreak_bits})")
-    weights = torch.arange(m - 1, -1, -1, dtype=torch.int64,
-                           device=bits.device) + tiebreak_bits
-    packed = (bits.to(torch.int64) << weights).sum(-1)
-    return packed | (tiebreak >> (32 - tiebreak_bits))
+def sort_keys(words: torch.Tensor, word_bits: int, tiebreak: torch.Tensor,
+              tiebreak_bits: int) -> List[torch.Tensor]:
+    """The lexicographic sort key of (word 0, ..., word M-1, tiebreak) as
+    int64 keys of at most 63 bits, most significant first.
+
+    Each word contributes its low ``word_bits`` bits (1 for SimHash bits,
+    32 for MinHash words), the tiebreak its top ``tiebreak_bits`` of 32.
+    Fields pack greedily from the least significant end, so a key that
+    fits in 63 bits (SimHash at M <= 43) is the single int64 of the
+    packed bits above the tiebreak.
+    """
+    n, m = words.shape
+    fields = [(words[:, j], word_bits) for j in range(m)]
+    fields.append((tiebreak >> (32 - tiebreak_bits), tiebreak_bits))
+    keys: List[torch.Tensor] = []
+    key, width = None, 0
+    for val, bits in reversed(fields):
+        if key is not None and width + bits > 63:
+            keys.append(key)
+            key, width = None, 0
+        part = val.to(torch.int64) << width
+        key = part if key is None else key | part
+        width += bits
+    keys.append(key)
+    return keys[::-1]
 
 
-def sorting_lsh_windows(bits: torch.Tensor, *, window: int,
+def lexsort_gids(keys: List[torch.Tensor]) -> torch.Tensor:
+    """Point ids in the lexicographic order of ``keys`` (most significant
+    first), equal keys by ascending id: a chain of stable sorts, least
+    significant key first."""
+    perm = torch.sort(keys[-1], stable=True).indices
+    for key in reversed(keys[:-1]):
+        perm = perm[torch.sort(key[perm], stable=True).indices]
+    return perm
+
+
+def sorting_lsh_windows(words: torch.Tensor, *, window: int,
                         shift_key: prng.Key, tiebreak: torch.Tensor,
-                        tiebreak_bits: int) -> Windows:
+                        tiebreak_bits: int, word_bits: int = 1) -> Windows:
     """Stars 2 windowing: exact lexicographic sort + random-shift blocks.
 
     Args:
-      bits:      (n, M) bool SimHash bits per point.
+      words:     (n, M) sketch words per point (uint32 values in int64).
       window:    W.
       shift_key: PRNG key of the random shift r ~ [W/2, W].
       tiebreak:  (n,) int64 uint32 tiebreak values; only the top
                  ``tiebreak_bits`` may be set (``stars._rep_window_grid``).
+      word_bits: significant bits of a word (``lsh.word_bits``).
     """
-    n = bits.shape[0]
-    key = sort_key(bits, tiebreak, tiebreak_bits)
+    n = words.shape[0]
     # stable over gids 0..n-1: equal keys keep gid order, the JAX sort's
     # final resolver
-    perm_gid = torch.sort(key, stable=True).indices.to(torch.int32)
+    perm_gid = lexsort_gids(
+        sort_keys(words, word_bits, tiebreak, tiebreak_bits)).to(torch.int32)
     offset, n_slots = window_layout("sorting", n, window, shift_key)
     return _scatter_to_slots(perm_gid, torch.zeros_like(perm_gid), offset,
                              n_slots, window)

@@ -21,6 +21,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 import repro.core  # noqa: F401  (imports repro's modules in a working order)
 from repro.core import HashFamilyConfig as JHash
@@ -30,7 +31,8 @@ from repro.data import mnist_like_points
 from repro.graph import accumulator as j_acc
 from repro.graph import affinity_clustering as j_affinity
 from repro.graph import v_measure as j_v_measure
-from repro_torch import GraphBuilder, HashFamilyConfig, StarsConfig
+from repro_torch import (GraphBuilder, HashFamilyConfig, PointFeatures,
+                         StarsConfig)
 from repro_torch.graph import accumulator as t_acc
 from repro_torch.graph.affinity import affinity_clustering
 from repro_torch.graph.metrics import v_measure
@@ -112,10 +114,27 @@ def test_stars_config_mirrors_jax_fields_and_defaults():
     dict(feature_store="paged"), dict(measure="mixture"),
     dict(family=HashFamilyConfig("minhash"))])
 def test_unported_configs_raise(change):
-    x = np.zeros((8, 4), np.float32)
-    with pytest.raises(NotImplementedError):
-        GraphBuilder(x, dataclasses.replace(StarsConfig(), **change),
-                     device="cpu")
+    """Of the configs the port refused before its measure layer, only the
+    paged feature store still raises ``NotImplementedError``.  The others
+    behave as in the JAX package: the pair cache refuses a closed-form
+    measure and 'learned' needs a model (``ValueError``), and the set
+    families and measures build on points with dense and set blocks."""
+    rs = np.random.RandomState(0)
+    x = PointFeatures(
+        dense=torch.from_numpy(rs.randn(40, 4).astype(np.float32)),
+        set_idx=torch.from_numpy(rs.randint(0, 30, (40, 4)).astype(np.int32)),
+        set_w=torch.ones((40, 4)), set_mask=torch.ones((40, 4), dtype=bool))
+    cfg = dataclasses.replace(StarsConfig(r=2, window=8, leaders=2,
+                                          degree_cap=4), **change)
+    if cfg.feature_store == "paged":
+        with pytest.raises(NotImplementedError):
+            GraphBuilder(x, cfg, device="cpu")
+    elif cfg.pair_cache_slots or cfg.measure == "learned":
+        with pytest.raises(ValueError):
+            GraphBuilder(x, cfg, device="cpu")
+    else:
+        g = GraphBuilder(x, cfg, device="cpu").add_reps().finalize()
+        assert g.stats["comparisons"] > 0 and g.num_edges > 0
 
 
 def test_unported_session_calls_raise():
@@ -152,7 +171,8 @@ from repro_torch import GraphBuilder, StarsConfig
 import repro_torch.kernels.ops, repro_torch.graph.metrics, \\
     repro_torch.graph.affinity, repro_torch.testing, \\
     repro_torch.core.convert, repro_torch.service.delta, \\
-    repro_torch.graph.components, repro_torch.graph.single_linkage
+    repro_torch.graph.components, repro_torch.graph.single_linkage, \\
+    repro_torch.data, repro_torch.similarity.pair_cache
 assert "jax" not in sys.modules or sys.modules["jax"] is None
 assert not any(m == "repro" or m.startswith("repro.") for m in sys.modules)
 x = np.random.RandomState(0).randn(40, 8).astype(np.float32)

@@ -108,9 +108,23 @@ def test_pack_bits_matches():
 
 
 def test_sort_key_needs_63_bits():
-    bits = torch.zeros((4, 44), dtype=torch.bool)
-    with pytest.raises(NotImplementedError):
-        t_win.sort_key(bits, torch.zeros(4, dtype=torch.int64), 20)
+    """Keys stay within 63 bits: M = 43 SimHash bits and the 20-bit
+    tiebreak pack into one int64; M = 44 needs a second key, and the
+    chained stable sort orders the points as a lexicographic sort of
+    (words, tiebreak, gid) does."""
+    rs = np.random.RandomState(1)
+    tb = torch.from_numpy(rs.randint(0, 4, 64).astype(np.int64) << 30)
+    assert len(t_win.sort_keys(torch.zeros((64, 43), dtype=torch.int64), 1,
+                               tb, 20)) == 1
+    words = rs.randint(0, 2, (64, 44)).astype(np.int64)
+    words[:, :40] = 0                     # many ties on the leading words
+    keys = t_win.sort_keys(torch.from_numpy(words), 1, tb, 20)
+    assert len(keys) == 2
+    assert all(int(k.max()) < 2**63 and int(k.min()) >= 0 for k in keys)
+    cols = [np.arange(64), tb.numpy() >> 12] + [words[:, j] for j in
+                                                 range(43, -1, -1)]
+    np.testing.assert_array_equal(t_win.lexsort_gids(keys).numpy(),
+                                  np.lexsort(cols))
 
 
 @pytest.mark.parametrize("n,m,window", [(1000, 8, 64), (777, 12, 100)])
