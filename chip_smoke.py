@@ -26,6 +26,12 @@ Phases, one JSON line each; any failed check exits non-zero:
               that run (by design, and the rows that broke topk_merge's
               preconditions: none) and two-hop recall@10 against exact
               neighbours; then one more repetition under torch.profiler.
+     e2e_paged: the same build with feature_store='paged' at its
+              defaults (pages of 512 rows, a 64 MiB pool: 256 of the
+              2,048 pages), the points handed over from a host copy: the
+              slabs and stats equal e2e's bit for bit; page faults, hits
+              and bytes a repetition, chunks and host syncs, the H2D rate
+              beside a pinned copy loop's.
   5. e2e_lsh: LSH-Stars (Stars 1) on the same points: SimHash M = 16,
               bucket cap W = 10,000, r = 25.
   6. e2e_prefilter: the default SortingLSH build with the 64-bit Hamming
@@ -44,6 +50,13 @@ Phases, one JSON line each; any failed check exits non-zero:
               2,048 x 2,048 pairs) on the first 2**16 points: C(n, 2)
               comparisons and two-hop recall@10 >= 0.999; then the default
               Stars build on the same points for the comparison ratio.
+     e2e_serve: a ServeSession over a resident build of the first
+              2**20 - 16,384 points: four rounds of four inserts of 1,024
+              points and two queries of 16 ids, then a components and an
+              affinity clustering (1,000 target clusters), each step
+              timed; no edge fetch; four ids recomputed on the CPU; the
+              components labels checked as component minima on the card;
+              the affinity labels' v-measure against the 1,000 classes.
      e2e_learned: the Amazon2m learned pipeline at n = 2**20 (d = 100,
               sets of 16): the two-tower measure at its defaults (random
               weights) over mixture-family (M = 16) SortingLSH Stars,
@@ -79,7 +92,15 @@ Phases, one JSON line each; any failed check exits non-zero:
               measure (raw pair features with the cache off and on,
               embedding pair features, each with an extend and a restore;
               with the Hamming prefilter), and the exact Jaccard sweep at
-              n = 5,000.  The CPU builds run in a worker process
+              n = 5,000.  Then the paged store at n = 20,000, r = 5, a
+              pool of an eighth of the table: the four windowed sources
+              (each a session with an extend and a refresh round, equal
+              to the resident build on the card bit for bit), the exact
+              sweep at 5,000, the learned measure with state pages; their
+              page counters CUDA == CPU; a serve session with deltas on
+              (replayed against the live slabs), queries and both
+              clusterings (the card's programs on the CPU's slabs give
+              the CPU's labels).  The CPU builds run in a worker process
               (``chip_smoke.py --parity-worker``, no card visible) that
               starts after phase 3, so they overlap phases 4-11.
 
@@ -840,13 +861,15 @@ def phase_flash_attention(torch) -> dict:
             "shapes": shapes}
 
 
-def clustered_points(torch, n, d, classes, spread, seed, device):
+def clustered_points(torch, n, d, classes, spread, seed, device,
+                     with_labels=False):
     gen = torch.Generator(device=device).manual_seed(seed)
     centers = torch.randn((classes, d), generator=gen, device=device)
     centers = centers / centers.norm(dim=-1, keepdim=True)
     label = torch.randint(0, classes, (n,), generator=gen, device=device)
     noise = torch.randn((n, d), generator=gen, device=device)
-    return centers[label] + spread * noise
+    x = centers[label] + spread * noise
+    return (x, label) if with_labels else x
 
 
 def kernel_modules():
@@ -986,8 +1009,10 @@ def run_build(torch, phase, x, cfg, need, extra=None, truth=None):
     return launches, builder, row
 
 
-def phase_e2e(torch, x) -> dict:
-    """The main path at n = 2**20; returns each kernel's launch count."""
+def phase_e2e(torch, x):
+    """The main path at n = 2**20; returns each kernel's launch count and
+    the slabs and stats after the cfg.r repetitions (e2e_paged's
+    reference)."""
     from repro_torch import StarsConfig
     r = StarsConfig().r
     launches, builder, _ = run_build(
@@ -997,10 +1022,111 @@ def phase_e2e(torch, x) -> dict:
          "window_score_by_mask": lambda c: c == {"none": r, "new": 0,
                                                  "refresh": 0},
          **MERGE_ONLY})
+    state = builder.slab_state()
+    reference = (state.nbr.clone(), state.w.clone(), builder.stats)
     phase_profile(torch, "e2e", builder)
-    del builder
+    del builder, state
+    torch.cuda.empty_cache()
+    return launches, reference
+
+
+def pinned_copy_rate(torch, page_bytes, copies=2048) -> float:
+    """Bytes / s of back-to-back ``non_blocking`` copies of one pinned
+    page of ``page_bytes`` into device memory (the paged store's fault)."""
+    host = torch.empty(page_bytes // 4, dtype=torch.float32).pin_memory()
+    dev = torch.empty_like(host, device="cuda")
+    dev.copy_(host, non_blocking=True)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(copies):
+        dev.copy_(host, non_blocking=True)
+    torch.cuda.synchronize()
+    return copies * page_bytes / (time.perf_counter() - t)
+
+
+def phase_e2e_paged(torch, x, reference) -> dict:
+    """The main path with ``feature_store='paged'`` at its defaults (pages
+    of 512 rows, a 64 MiB pool: 256 of the table's 2,048 pages resident):
+    the points go to the store from a host copy, cfg.r repetitions, then
+    the slabs and stats against e2e's bit for bit; the page traffic, the
+    chunks and host syncs a repetition, the H2D rate reached beside the
+    rate of a pinned copy loop of one page.  No finalize (e2e's slabs,
+    equal, were finalized).  Returns the launch counts."""
+    from repro_torch import GraphBuilder, StarsConfig
+    from repro_torch.graph import accumulator as acc
+    cfg = StarsConfig(feature_store="paged")
+    r = cfg.r
+    host = x.cpu()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    acc.reset_transfer_stats()
+    reset_launches()
+    t = time.perf_counter()
+    builder = GraphBuilder(host, cfg)
+    setup_s = time.perf_counter() - t
+    del host
+    store = builder.feature_store
+    rep_s = timed_reps(torch, builder, r)
+    launches = read_launches()
+    backend = builder._backend
+    nw = builder_windows(cfg, builder.n)
+    chunks = -(-nw // backend._chunk_rows(nw))
+    rounds = r * chunks
+    for name, ok in {
+            "window_score": lambda c: c == rounds,
+            "window_score_by_design": lambda c: c == {"pipe": rounds,
+                                                      "tile": 0},
+            "topk_merge": lambda c: c == rounds,
+            "topk_merge_violations": lambda c: c == 0,
+            "leader_score": lambda c: c == 0}.items():
+        check(ok(launches[name]),
+              f"e2e_paged: {name} launched {launches[name]}: {launches}")
+    ts = dict(acc.transfer_stats)
+    state = builder.slab_state()
+    ref_nbr, ref_w, ref_stats = reference
+    equal = torch.equal(state.nbr, ref_nbr) and torch.equal(
+        state.w.view(torch.int32), ref_w.view(torch.int32))
+    check(equal, "e2e_paged: the paged slabs differ from e2e's")
+    check(builder.stats == ref_stats,
+          f"e2e_paged: stats {builder.stats} vs e2e's {ref_stats}")
+    live = state.nbr >= 0
+    check(bool(torch.isfinite(state.w[live]).all()),
+          "e2e_paged: a non-finite emitted weight")
+    check(0 < ts["feature_page_peak_bytes"] <= cfg.feature_pool_bytes,
+          f"e2e_paged: peak pool bytes {ts['feature_page_peak_bytes']}")
+    check(ts["feature_page_bytes"]
+          == ts["feature_page_faults"] * store.page_bytes,
+          f"e2e_paged: page bytes {ts}")
+    check(backend.host_syncs == rounds,
+          f"e2e_paged: {backend.host_syncs} host syncs, {rounds} chunks")
+    reps_s = sum(rep_s)
+    rate = pinned_copy_rate(torch, store.page_bytes)
+    emit({"phase": "e2e_paged", "n": builder.n, "d": store.d,
+          "page_rows": store.page_rows, "page_bytes": store.page_bytes,
+          "pool_bytes": store.pool_bytes, "pool_pages": store.pool_pages,
+          "table_pages": -(-builder.n // store.page_rows), "r": r,
+          "setup_seconds": setup_s, "seconds_per_rep": rep_s,
+          "reps_seconds": reps_s, "window_rows": nw,
+          "chunk_rows": backend._chunk_rows(nw), "chunks_per_rep": chunks,
+          "host_syncs": backend.host_syncs,
+          "faults_per_rep": ts["feature_page_faults"] / r,
+          "hits_per_rep": ts["feature_page_hits"] / r,
+          "page_bytes_per_rep": ts["feature_page_bytes"] / r,
+          "peak_pool_bytes": ts["feature_page_peak_bytes"],
+          "h2d_gb_per_s": ts["feature_page_bytes"] / reps_s / 1e9,
+          "pinned_copy_gb_per_s": rate / 1e9,
+          "copy_floor_seconds_per_rep": ts["feature_page_bytes"] / r / rate,
+          "slabs_equal_e2e": equal, "launches": launches,
+          "peak_device_bytes": torch.cuda.max_memory_allocated()})
+    del builder, state, live, store, backend
     torch.cuda.empty_cache()
     return launches
+
+
+def builder_windows(cfg, n) -> int:
+    """Window rows of one repetition's grid."""
+    from repro_torch.core.windows import window_slot_count
+    return window_slot_count(cfg.mode, n, cfg.window) // cfg.window
 
 
 # LSH-Stars (Stars 1): SimHash M = 16 (the paper's M ~ log2(n / 15) at
@@ -1269,6 +1395,170 @@ def phase_e2e_allpairs(torch, x) -> dict:
           "recall_allpairs": row["two_hop_recall_at_10"],
           "recall_stars": stars["two_hop_recall_at_10"]})
     del builder
+    torch.cuda.empty_cache()
+    return launches
+
+
+# e2e_serve: a resident session on the first 2**20 - 16,384 e2e points,
+# then SERVE_ROUNDS rounds of SERVE_EXTENDS inserts of SERVE_BATCH points
+# and SERVE_QUERIES two-hop queries of SERVE_QUERY_IDS random ids each,
+# then a components and an affinity clustering (SERVE_TARGET_CLUSTERS, the
+# points' classes).  Deltas are off: their host diff at this n would take
+# minutes (the parity phase's serve session streams them).
+SERVE_ROUNDS, SERVE_EXTENDS, SERVE_BATCH = 4, 4, 1024
+SERVE_QUERIES, SERVE_QUERY_IDS, SERVE_CHECKED_IDS = 2, 16, 4
+SERVE_TARGET_CLUSTERS = 1000
+N_SERVE_BASE = N_E2E - SERVE_ROUNDS * SERVE_EXTENDS * SERVE_BATCH
+
+
+def check_segment_sum(torch) -> int:
+    """``torch.segment_reduce`` over (rows, 1) data, the affinity means'
+    sum, against the CPU's sequential fold bit for bit, on segments up to
+    200,000 long of values spread over 14 orders of magnitude; returns
+    the values summed."""
+    gen = torch.Generator().manual_seed(SEED + 6)
+    lengths = torch.randint(1, 200_000, (64,), generator=gen)
+    vals = torch.randn(int(lengths.sum()), generator=gen) * torch.exp(
+        4 * torch.randn(int(lengths.sum()), generator=gen))
+    sums = [torch.segment_reduce(vals.to(dev)[:, None], "sum",
+                                 lengths=lengths.to(dev), axis=0,
+                                 unsafe=True)[:, 0].cpu()
+            for dev in ("cpu", "cuda")]
+    check(torch.equal(sums[0].view(torch.int32), sums[1].view(torch.int32)),
+          "segment_reduce sums differently on the card and on the CPU")
+    return int(lengths.sum())
+
+
+def check_components(torch, labels, state, n) -> None:
+    """Component minima on the card: label <= id, label[label] == label,
+    and one label at both ends of every slab edge."""
+    lab = torch.as_tensor(labels, device="cuda")
+    ids = torch.arange(n, device="cuda")
+    live = state.nbr >= 0
+    rows = ids[:, None].expand_as(state.nbr)[live]
+    ok = (bool((lab <= ids).all()) and bool((lab[lab] == lab).all())
+          and bool((lab[rows] == lab[state.nbr[live].long()]).all()))
+    check(ok, "e2e_serve: the components labels are not component minima")
+
+
+def phase_e2e_serve(torch, x, classes) -> dict:
+    """The serving loop at n = 2**20: a resident session on the first
+    N_SERVE_BASE points (cfg.r repetitions), a ServeSession (deltas off)
+    fed SERVE_ROUNDS rounds of inserts and queries and two clusterings,
+    served step by step (``run_until_idle``'s loop, each step timed);
+    SERVE_CHECKED_IDS ids of the last query recomputed on the CPU from a
+    host copy of the slabs; the components labels checked on the card;
+    the affinity labels' v-measure against the points' classes.  Returns
+    the launch counts of the session (after its first build)."""
+    import numpy as np
+    from repro_torch import GraphBuilder, StarsConfig
+    from repro_torch.graph import accumulator as acc
+    from repro_torch.graph.metrics import v_measure
+    from repro_torch.service import (ServeConfig, ServeSession,
+                                     two_hop_neighbors)
+    cfg = StarsConfig()
+    r, n0 = cfg.r, N_SERVE_BASE
+    summed = check_segment_sum(torch)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    builder = GraphBuilder(x[:n0], cfg).add_reps(r)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    session = ServeSession(builder, ServeConfig(emit_deltas=False))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    queries = []
+    for i in range(SERVE_ROUNDS):
+        for j in range(SERVE_EXTENDS):
+            lo = n0 + (i * SERVE_EXTENDS + j) * SERVE_BATCH
+            check(session.submit_extend(x[lo:lo + SERVE_BATCH]) is not None,
+                  "e2e_serve: an insert was rejected")
+        for _ in range(SERVE_QUERIES):
+            ids = torch.randint(0, lo + SERVE_BATCH, (SERVE_QUERY_IDS,),
+                                generator=gen, device="cuda")
+            queries.append(session.submit_query(ids.cpu().numpy()))
+    t_cc = session.submit_cluster("components")
+    t_af = session.submit_cluster("affinity",
+                                  target_clusters=SERVE_TARGET_CLUSTERS)
+    fetches = (acc.transfer_stats["edge_fetches"],
+               acc.transfer_stats["bytes"])
+    reset_launches()
+    steps = {"absorb": [], "query": [], "cluster": []}
+    query_peak = 0
+    while True:
+        before = session.stats
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        if not session.step():
+            break
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        after = session.stats
+        kind = ("absorb" if after["absorb_rounds"] > before["absorb_rounds"]
+                else "query" if after["queries_served"]
+                > before["queries_served"] else "cluster")
+        steps[kind].append(dt)
+        if kind == "query":
+            query_peak = max(query_peak,
+                             torch.cuda.max_memory_allocated() - base)
+    launches = read_launches()
+    stats = session.stats
+    rounds = SERVE_ROUNDS * r
+    for name, ok in {
+            "window_score": lambda c: c == rounds,
+            "window_score_by_mask": lambda c: c == {"none": 0, "new": rounds,
+                                                    "refresh": 0},
+            "topk_merge": lambda c: c == rounds,
+            "topk_merge_violations": lambda c: c == 0}.items():
+        check(ok(launches[name]),
+              f"e2e_serve: {name} launched {launches[name]}: {launches}")
+    n = builder.n
+    check(stats["absorb_rounds"] == SERVE_ROUNDS
+          and stats["points_absorbed"] == N_E2E - n0 and n == N_E2E
+          and stats["queries_served"]
+          == SERVE_ROUNDS * SERVE_QUERIES * SERVE_QUERY_IDS
+          and stats["clusterings_served"] == 2 and stats["rejections"] == 0,
+          f"e2e_serve: stats {stats}")
+    check((acc.transfer_stats["edge_fetches"], acc.transfer_stats["bytes"])
+          == fetches, "e2e_serve: the session fetched edges")
+    check(all(q.done for q in queries) and t_cc.done and t_af.done,
+          "e2e_serve: a request was not served")
+    # the last query's first ids again, on the CPU from a host copy of the
+    # slabs (not a metered fetch): the same members and weights
+    state = builder.slab_state()
+    last = queries[-1].result
+    ids = last["nodes"][:SERVE_CHECKED_IDS]
+    t = time.perf_counter()
+    cpu = [a.numpy() for a in two_hop_neighbors(
+        state.nbr.cpu(), state.w.cpu(), ids, q_cap=min(128, n),
+        group_bytes=1)]
+    cpu_query_s = time.perf_counter() - t
+    k = SERVE_CHECKED_IDS
+    check(np.array_equal(cpu[0], last["ids"][:k])
+          and np.array_equal(cpu[1].view(np.int32),
+                             last["weights"][:k].view(np.int32))
+          and np.array_equal(cpu[2], last["counts"][:k]),
+          "e2e_serve: a query differs from its CPU recomputation")
+    check_components(torch, t_cc.result["labels"], state, n)
+    v = v_measure(classes[:n].cpu().numpy(), t_af.result["labels"])["v"]
+    emit({"phase": "e2e_serve", "n_base": n0, "n": n, "r": r,
+          "build_seconds": build_s,
+          "absorb_round_seconds": steps["absorb"],
+          "query_ms": [s * 1e3 for s in steps["query"]],
+          "query_ms_per_id": sum(steps["query"]) * 1e3
+          / stats["queries_served"],
+          "query_group_peak_bytes": query_peak,
+          "cpu_recheck_seconds": cpu_query_s,
+          "components": {"seconds": steps["cluster"][0],
+                         **t_cc.result["info"],
+                         "clusters": int(np.unique(
+                             t_cc.result["labels"]).size)},
+          "affinity": {"seconds": steps["cluster"][1],
+                       **t_af.result["info"], "v_measure": v},
+          "segment_sum_values_checked": summed,
+          "stats": stats, "launches": launches})
+    del builder, session, state, queries, t_cc, t_af
     torch.cuda.empty_cache()
     return launches
 
@@ -1811,6 +2101,55 @@ def measure_parity_configs():
             "prod", "raw", tol=1e-5)}
 
 
+# Parity of the paged feature store and the serving loop: the four
+# windowed sources paged at N_PAGED_PARITY points, r = PAGED_PARITY_R, a
+# pool of an eighth of the table, each a session (add on 7/8, extend by
+# the rest, one refresh round, as tests/test_store.py's); the exact sweep
+# paged at 5,000 (with an extend); the learned measure paged with its
+# state pages (dense pair features); a serve session with its delta
+# stream, queries and both clusterings.
+N_PAGED_PARITY = 20_000
+PAGED_PARITY_R = 5
+PAGE_KEYS = ("feature_page_bytes", "feature_page_faults",
+             "feature_page_hits", "feature_page_peak_bytes",
+             "embed_page_bytes", "embed_page_faults", "embed_page_hits")
+
+
+def paged_parity_configs():
+    """name -> spec of the paged and serving parity builds ('kind' paged
+    or serve)."""
+    import dataclasses
+    from repro_torch import HashFamilyConfig, StarsConfig
+    m16 = HashFamilyConfig("simhash", m=16)
+    n = N_PAGED_PARITY
+    r = dict(r=PAGED_PARITY_R)
+
+    def paged(cfg, rows, d=128):
+        return dataclasses.replace(cfg, feature_store="paged",
+                                   feature_pool_bytes=rows * d * 4 // 8)
+
+    def spec(cfg, rows, data="dense", measure=None, tol=1e-6,
+             kind="paged"):
+        return dict(cfg=cfg, data=data, n=rows, measure=measure,
+                    session=False, tol=tol, kind=kind)
+
+    return {
+        "paged-sorting-stars": spec(paged(StarsConfig(**r), n), n),
+        "paged-lsh-stars": spec(paged(StarsConfig(
+            family=m16, **{**LSH_STARS, **r}), n), n),
+        "paged-lsh-allpairs": spec(paged(StarsConfig(
+            mode="lsh", scoring="allpairs", family=m16, window=1000, **r),
+            n), n),
+        "paged-sorting-allpairs": spec(paged(StarsConfig(
+            scoring="allpairs", **r), n), n),
+        "paged-allpairs": spec(paged(StarsConfig(source="allpairs"),
+                                     5_000), 5_000),
+        "paged-learned": spec(paged(StarsConfig(
+            measure="learned", family=m16, r=MEASURE_PARITY_R), n, 100), n,
+            "prod-dense", "dense", 1e-5),
+        "serve": spec(StarsConfig(**r), n, kind="serve")}
+
+
 def parity_jobs():
     """name -> spec of every parity build, in order (the dense configs'
     specs carry their n and 'dense' as their inputs)."""
@@ -1821,10 +2160,12 @@ def parity_jobs():
             jobs[name] = dict(cfg=cfg, data="dense", n=n, measure=None,
                               session=session, tol=1e-6)
     jobs.update(measure_parity_configs())
+    jobs.update(paged_parity_configs())
     return jobs
 
 
-LEARNED_PARITY = {"raw": {}, "embed": {"pair_features": "embed"}}
+LEARNED_PARITY = {"raw": {}, "embed": {"pair_features": "embed"},
+                  "dense": {"use_set_features": False}}
 
 
 def parity_inputs(torch) -> dict:
@@ -1860,6 +2201,10 @@ def parity_build(torch, name, job, inputs, device) -> dict:
     from repro_torch.graph.accumulator import to_host
     from repro_torch.service.delta import apply_delta
     from repro_torch.testing import slab_boundary
+    if job.get("kind") == "paged":
+        return paged_parity_build(torch, name, job, inputs, device)
+    if job.get("kind") == "serve":
+        return serve_parity_build(torch, name, job, inputs, device)
     cfg, session = job["cfg"], job["session"]
     if job["data"] == "dense":
         x = inputs[("dense", job["n"])].to(device)
@@ -1910,6 +2255,219 @@ def parity_build(torch, name, job, inputs, device) -> dict:
             device=device)
     return dict(graph=g, bound=slab_boundary(*slabs), tie_rows=tie_rows,
                 seconds=time.perf_counter() - t, launches=launches)
+
+
+def parity_measure(torch, job, inputs, device):
+    """The job's learned measure on ``device``, or None."""
+    from repro_torch import (LearnedMeasure, LearnedSimilarity,
+                             TwoTowerConfig)
+    if job["measure"] is None:
+        return None
+    model = LearnedSimilarity(TwoTowerConfig(
+        in_dim=100, **LEARNED_PARITY[job["measure"]]))
+    return LearnedMeasure(model, {k: v.to(device) for k, v in
+                                  inputs[job["measure"]].items()})
+
+
+def paged_parity_build(torch, name, job, inputs, device) -> dict:
+    """A paged session (add on 7/8 of the points, extend by the rest, one
+    refresh round; the exact sweep: add and extend) from the points' host
+    copy, its page counters, and on CUDA the same session on the
+    resident store, which must give the same slabs and stats bit for
+    bit."""
+    import dataclasses
+    from repro_torch import GraphBuilder
+    from repro_torch.graph import accumulator as acc
+    from repro_torch.testing import slab_boundary
+    cfg = job["cfg"]
+    x = (inputs[("dense", job["n"])] if job["data"] == "dense"
+         else inputs["prod"]["dense"])
+    n0 = x.shape[0] * 7 // 8
+    meas = parity_measure(torch, job, inputs, device)
+    exact = cfg.source_name == "allpairs"
+
+    def session(c, points):
+        b = GraphBuilder(points[:n0], c, device=device,
+                         measure=meas).add_reps()
+        if exact:
+            b.extend(points[n0:])
+        else:
+            b.extend(points[n0:], reps=2)
+            b.refresh_reps(1)
+        return b
+
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        reset_launches()
+    acc.reset_transfer_stats()
+    t = time.perf_counter()
+    b = session(cfg, x)
+    pages = {k: acc.transfer_stats[k] for k in PAGE_KEYS}
+    g = b.finalize()
+    launches = None
+    if cuda:
+        torch.cuda.synchronize()
+        launches = read_launches()
+    seconds = time.perf_counter() - t
+    check(0 < pages["feature_page_peak_bytes"] <= cfg.feature_pool_bytes
+          and pages["feature_page_faults"] > 0,
+          f"{name} ({device}): page counters {pages}")
+    slabs = acc.to_host(b.slab_state())[:2]
+    if cuda:
+        rb = session(dataclasses.replace(cfg, feature_store="resident"),
+                     x.to(device))
+        a, c = b.slab_state(), rb.slab_state()
+        check(torch.equal(a.nbr, c.nbr) and torch.equal(
+            a.w.view(torch.int32), c.w.view(torch.int32))
+            and b.stats == rb.stats,
+            f"{name}: the paged build differs from the resident build on "
+            "the card")
+        del rb, a, c
+    return dict(graph=g, bound=slab_boundary(*slabs), tie_rows=None,
+                seconds=seconds, launches=launches, pages=pages,
+                host_syncs=getattr(b._backend, "host_syncs", None))
+
+
+SERVE_PARITY_TARGET = 1000
+
+
+def serve_parity_build(torch, name, job, inputs, device) -> dict:
+    """A serve session: a build on 7/8 of the points, then two absorb
+    rounds of two inserts each (the rest of the points), a query of 16
+    ids after each, a components and an affinity clustering; deltas on,
+    replayed onto an empty replica against the live slabs."""
+    import numpy as np
+    from repro_torch import GraphBuilder
+    from repro_torch.graph import accumulator as acc
+    from repro_torch.service import ServeConfig, ServeSession, apply_delta
+    from repro_torch.testing import slab_boundary
+    cfg = job["cfg"]
+    x = inputs[("dense", job["n"])].to(device)
+    n0 = x.shape[0] * 7 // 8
+    part = (x.shape[0] - n0) // 4
+    qids = np.linspace(0, n0 + 2 * part - 1, 16).astype(np.int32)
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+    t = time.perf_counter()
+    b = GraphBuilder(x[:n0], cfg, device=device).add_reps()
+    if cuda:
+        reset_launches()
+    deltas = []
+    sess = ServeSession(b, ServeConfig(batch_window=2), on_delta=deltas.append)
+    queries = []
+    for i in range(4):
+        hi = x.shape[0] if i == 3 else n0 + (i + 1) * part
+        sess.submit_extend(x[n0 + i * part:hi])
+        if i % 2:
+            queries.append(sess.submit_query(qids))
+    t_cc = sess.submit_cluster("components")
+    t_af = sess.submit_cluster("affinity",
+                               target_clusters=SERVE_PARITY_TARGET)
+    stats = sess.run_until_idle()
+    g = b.finalize()
+    launches = None
+    if cuda:
+        torch.cuda.synchronize()
+        launches = read_launches()
+    seconds = time.perf_counter() - t
+    nbr, w = acc.to_host(b.slab_state())[:2]
+    replica = (np.full((0, 0), -1, np.int32),
+               np.full((0, 0), -np.inf, np.float32))
+    for d in deltas:
+        replica = apply_delta(*replica, d)
+    tie_rows = check_replay(torch, f"{name} ({device})", replica, (nbr, w),
+                            device=device)
+    check(stats["absorb_rounds"] == 2 and stats["deltas_emitted"] == 2
+          and stats["clusterings_served"] == 2,
+          f"{name} ({device}): stats {stats}")
+    return dict(graph=g, bound=slab_boundary(nbr, w), tie_rows=tie_rows,
+                seconds=seconds, launches=launches,
+                serve=dict(stats=stats, nbr=nbr, w=w,
+                           queries=[q.result for q in queries],
+                           cc=t_cc.result, af=t_af.result))
+
+
+def check_query_answers(name, a, b, tol, same_edges) -> int:
+    """Two answers of one two-hop query (card, CPU) under the parity's
+    near-tie rule: a member's bottleneck weight within ``tol`` on both
+    sides; a member on one side only is a near-tie at the truncation cut
+    (the other side is full and its last kept weight is within ``tol``);
+    the neighbourhood counts equal where the slabs hold the same edges.
+    Returns the members kept on one side only."""
+    import numpy as np
+    check(np.array_equal(a["nodes"], b["nodes"]), f"{name}: query nodes")
+    if same_edges:
+        check(np.array_equal(a["counts"], b["counts"]),
+              f"{name}: two-hop counts differ on equal edge sets")
+    q_cap, one_sided = a["ids"].shape[1], 0
+    for ia, wa, ib, wb in zip(a["ids"], a["weights"], b["ids"], b["weights"]):
+        ma = dict(zip(ia[ia >= 0].tolist(), wa[ia >= 0].tolist()))
+        mb = dict(zip(ib[ib >= 0].tolist(), wb[ib >= 0].tolist()))
+        for m in ma.keys() & mb.keys():
+            check(abs(ma[m] - mb[m]) <= tol,
+                  f"{name}: member {m}'s weight {ma[m]} vs {mb[m]}")
+        for mine, other in ((ma, mb), (mb, ma)):
+            for m in mine.keys() - other.keys():
+                one_sided += 1
+                check(len(other) == q_cap
+                      and abs(mine[m] - min(other.values())) <= tol,
+                      f"{name}: member {m} ({mine[m]}) on one side only, "
+                      "not at a near-tie cut")
+    return one_sided
+
+
+def check_store_serve_parity(torch, name, job, gpu, cpu) -> dict:
+    """The paged jobs' page counters, CUDA == CPU.  The serve job: the
+    sessions' stats equal; every query answer equal under the near-tie
+    rule (``check_query_answers``); the components labels equal where
+    the slabs hold the same edges (they read no weight); and the card's
+    clustering programs on the CPU session's slabs give the CPU's labels
+    and info, so the affinity labels of the two sessions can differ only
+    through the slab weights ``check_parity`` holds within the job's
+    tolerance (a near-tie of two cluster-pair means can flip a merge).
+    Returns what the parity row prints beside the builds' comparison."""
+    import numpy as np
+    from repro_torch.graph import cluster as cluster_lib
+    if job["kind"] == "paged":
+        check(gpu["pages"] == cpu["pages"], f"{name}: page counters "
+              f"{gpu['pages']} on the card, {cpu['pages']} on the CPU")
+        return {"pages": gpu["pages"], "host_syncs": gpu["host_syncs"],
+                "resident_equal_on_card": True}
+    g, c = gpu["serve"], cpu["serve"]
+    n = c["nbr"].shape[0]
+    nbr = torch.as_tensor(c["nbr"], device="cuda")
+    w = torch.as_tensor(c["w"], device="cuda")
+    cc, cc_info = cluster_lib.connected_components_slabs(nbr, n=n)
+    af, af_info = cluster_lib.affinity_slabs(
+        nbr, w, n=n, target_clusters=SERVE_PARITY_TARGET)
+    check(np.array_equal(cc, c["cc"]["labels"])
+          and cc_info == c["cc"]["info"]
+          and np.array_equal(af, c["af"]["labels"])
+          and af_info == c["af"]["info"],
+          f"{name}: the card's clusterings of the CPU slabs differ from "
+          "the CPU's")
+    check(g["stats"] == c["stats"], f"{name}: session stats "
+          f"{g['stats']} on the card, {c['stats']} on the CPU")
+    # row by row as sets: a near-tie may order a row's entries otherwise
+    same_edges = np.array_equal(np.sort(g["nbr"], 1), np.sort(c["nbr"], 1))
+    one_sided = [check_query_answers(name, a, b, job["tol"], same_edges)
+                 for a, b in zip(g["queries"], c["queries"])]
+    if same_edges:
+        check(np.array_equal(g["cc"]["labels"], c["cc"]["labels"])
+              and g["cc"]["info"] == c["cc"]["info"],
+              f"{name}: the sessions' components labels differ")
+    return {"session_stats": g["stats"], "edge_sets_equal": same_edges,
+            "slabs_bit_equal": np.array_equal(g["nbr"], c["nbr"])
+            and np.array_equal(g["w"].view(np.int32), c["w"].view(np.int32)),
+            "query_members_one_sided": one_sided,
+            "components_labels_equal": bool(np.array_equal(
+                g["cc"]["labels"], c["cc"]["labels"])),
+            "affinity_labels_equal": bool(np.array_equal(
+                g["af"]["labels"], c["af"]["labels"])),
+            "card_programs_on_cpu_slabs_equal": True,
+            "components": cc_info, "affinity": af_info}
 
 
 def check_parity(torch, name, job, gpu, cpu, extra=None) -> None:
@@ -2027,7 +2585,9 @@ def phase_parity(torch, inputs, worker, started) -> dict:
     """Every parity build on CUDA, then the worker's CPU builds of the
     same jobs, compared job by job.  Returns the launch counts of the
     learned + prefilter build (the path that launches simhash_packed
-    before the expensive measure)."""
+    before the expensive measure) and of the paged LSH-Stars and
+    SortingLSH builds (leader_score's rows design and window_score on
+    chunks), by path."""
     import pickle
     jobs = parity_jobs()
     gpu, extra = {}, {}
@@ -2052,6 +2612,9 @@ def phase_parity(torch, inputs, worker, started) -> dict:
     for name, job in jobs.items():
         with open(PARITY_DIR / f"{name}.cpu.pkl", "rb") as f:
             cpu = pickle.load(f)
+        if job.get("kind"):
+            extra[name] = check_store_serve_parity(torch, name, job,
+                                                   gpu[name], cpu)
         check_parity(torch, name, job, gpu[name], cpu, extra.get(name))
     launches = gpu["learned-prefilter"]["launches"]
     r = jobs["learned-prefilter"]["cfg"].r
@@ -2060,7 +2623,19 @@ def phase_parity(torch, inputs, worker, started) -> dict:
           and launches["topk_merge_violations"] == 0
           and launches["window_score"] == launches["leader_score"] == 0,
           f"learned-prefilter: launches {launches}")
-    return launches
+    lsh = gpu["paged-lsh-stars"]["launches"]
+    check(lsh["leader_score_by_design"]["rows"] > 0
+          and lsh["window_score"] == 0 and lsh["topk_merge"] > 0
+          and lsh["topk_merge_violations"] == 0,
+          f"paged-lsh-stars: launches {lsh}")
+    sort = gpu["paged-sorting-stars"]["launches"]
+    check(sort["window_score"] == sort["topk_merge"] > 0
+          and sort["window_score_by_design"]["tile"] == 0
+          and sort["topk_merge_violations"] == 0,
+          f"paged-sorting-stars: launches {sort}")
+    return {"parity_learned_prefilter": launches,
+            "parity_paged_lsh_stars": lsh,
+            "parity_paged_sorting_stars": sort}
 
 
 def phase_parity_inline(torch, names) -> None:
@@ -2070,9 +2645,11 @@ def phase_parity_inline(torch, names) -> None:
     inputs = parity_inputs(torch)
     for name in names:
         job = jobs[name]
-        check_parity(torch, name, job,
-                     parity_build(torch, name, job, inputs, "cuda"),
-                     parity_build(torch, name, job, inputs, "cpu"))
+        gpu = parity_build(torch, name, job, inputs, "cuda")
+        cpu = parity_build(torch, name, job, inputs, "cpu")
+        extra = (check_store_serve_parity(torch, name, job, gpu, cpu)
+                 if job.get("kind") else None)
+        check_parity(torch, name, job, gpu, cpu, extra)
 
 
 def main() -> int:
@@ -2091,21 +2668,25 @@ def main() -> int:
         kernels.append(phase(torch))
         torch.cuda.empty_cache()
     parity_inputs_, worker, started = start_parity_worker(torch)
-    x = clustered_points(torch, N_E2E, D_E2E, classes=1000, spread=0.05,
-                         seed=SEED, device="cuda")
-    by_path = {"e2e": phase_e2e(torch, x),
-               "e2e_lsh": phase_e2e_lsh(torch, x),
-               "e2e_prefilter": phase_e2e_prefilter(torch, x),
-               "e2e_session": phase_e2e_session(torch, x),
-               "e2e_session_delta": phase_e2e_session_delta(torch, x),
-               "e2e_allpairs": phase_e2e_allpairs(torch, x)}
-    del x
+    x, classes = clustered_points(torch, N_E2E, D_E2E, classes=1000,
+                                  spread=0.05, seed=SEED, device="cuda",
+                                  with_labels=True)
+    by_path = {}
+    by_path["e2e"], reference = phase_e2e(torch, x)
+    by_path["e2e_paged"] = phase_e2e_paged(torch, x, reference)
+    del reference
+    by_path.update({"e2e_lsh": phase_e2e_lsh(torch, x),
+                    "e2e_prefilter": phase_e2e_prefilter(torch, x),
+                    "e2e_session": phase_e2e_session(torch, x),
+                    "e2e_session_delta": phase_e2e_session_delta(torch, x),
+                    "e2e_allpairs": phase_e2e_allpairs(torch, x),
+                    "e2e_serve": phase_e2e_serve(torch, x, classes)})
+    del x, classes
     torch.cuda.empty_cache()
     by_path.update(phase_e2e_learned(torch))
     by_path.update(phase_e2e_jaccard(torch))
     by_path["lm_embed"] = phase_lm(torch)
-    by_path["parity_learned_prefilter"] = phase_parity(
-        torch, parity_inputs_, worker, started)
+    by_path.update(phase_parity(torch, parity_inputs_, worker, started))
     for k in kernels:
         k["launches"] = sum(c[k["name"]] for c in by_path.values())
         k["launches_by_path"] = {p: c[k["name"]] for p, c in by_path.items()}

@@ -32,8 +32,13 @@ computed once a point and kept beside the features) or as a legacy
 device-resident pair-score cache for an expensive measure
 (:mod:`repro_torch.similarity.pair_cache`).
 
-Not ported yet: paged feature stores (``feature_store='paged'`` raises
-``NotImplementedError``), the mesh and ``cluster``.
+Features go through a :mod:`repro_torch.similarity.store` feature store:
+resident on the device (the default), or ``feature_store='paged'``: host
+pages faulted into a bounded device pool, so n is bounded by host memory
+(:class:`_PagedBackend`).  ``cluster`` runs connected components or
+average-linkage Affinity on the live slabs on the device
+(:mod:`repro_torch.graph.cluster`); only the label vector crosses to the
+host.  Not ported yet: the mesh.
 """
 
 from __future__ import annotations
@@ -45,16 +50,21 @@ import numpy as np
 import torch
 
 from repro_torch import prng
+from repro_torch.core import lsh as lsh_lib
 from repro_torch.core import windows as win_lib
 from repro_torch.core.spanner import Graph
 from repro_torch.core.stars import (StarsConfig, _emit, _prefilter_sketch,
-                                    _rep_candidates, _rep_keys)
+                                    _rep_candidates, _rep_keys, _rep_seed,
+                                    _rep_window_grid, _score_windows)
 from repro_torch.device import DeviceLike, as_tensor, resolve_device
 from repro_torch.graph import accumulator as acc_lib
 from repro_torch.service.delta import SlabDelta, diff_rows, replay_chain
 from repro_torch.similarity import pair_cache as pc_lib
 from repro_torch.similarity.measure import Measure, make_measure
 from repro_torch.similarity.measures import PointFeatures
+from repro_torch.similarity.store import (FeatureStore, PagedFeatureStore,
+                                          ResidentFeatureStore,
+                                          make_feature_store)
 
 _COUNTERS = ("comparisons", "emitted", "prefilter_ops", "scored_windows")
 
@@ -80,11 +90,12 @@ class RepetitionSource:
         self.cfg = cfg
         self.measure = measure
 
-    def bind(self, features: PointFeatures, new_from: int,
-             refresh_below: int = 0, refresh_fraction: float = 1.0,
-             measure_state: Optional[torch.Tensor] = None) -> Callable:
+    def bind(self, store: ResidentFeatureStore, new_from: int,
+             refresh_below: int = 0,
+             refresh_fraction: float = 1.0) -> Callable:
         cfg = self.cfg
         measure = self.measure
+        features, measure_state = store.features, store.state_table
         prefilter = (
             _prefilter_sketch(features, cfg.hamming_prefilter_bits, cfg.seed)
             if cfg.hamming_prefilter_bits > 0 else None)
@@ -123,8 +134,11 @@ class AllPairsSource:
     One round is one sweep over (block x block) tiles a0 <= b0, each
     scored through the measure (with the rows' state for a stateful one)
     and folded into the slabs by ``accumulate`` (so through
-    ``topk_merge``) at once.  The JAX package scores them outside any
-    kernel; here cosine / dot are one ``torch.matmul`` of the
+    ``topk_merge``) at once.  The rows are read through the feature store,
+    the A block once per outer step and the B block per tile, at ids
+    clamped to n - 1 (the pair mask drops the clamped ones), so a paged
+    store reads its pages in order.  The JAX package scores them outside
+    any kernel; here cosine / dot are one ``torch.matmul`` of the
     (normalised) rows in IEEE fp32, never TF32, whatever the process's
     matmul precision.  On an extension
     round only tiles that touch a new point are visited and the pair mask
@@ -135,28 +149,29 @@ class AllPairsSource:
         self.cfg = cfg
         self.measure = measure
 
-    def bind(self, features: PointFeatures, new_from: int,
-             refresh_below: int = 0, refresh_fraction: float = 1.0,
-             measure_state: Optional[torch.Tensor] = None) -> Callable:
+    def bind(self, store: FeatureStore, new_from: int,
+             refresh_below: int = 0,
+             refresh_fraction: float = 1.0) -> Callable:
         if refresh_below > 0:
             raise ValueError("the exact 'allpairs' source has no sampling "
                              "staleness to refresh")
         cfg = self.cfg
         measure = self.measure
-        n = features.n
+        n = store.n
         block = min(cfg.allpairs_block, max(n, 1))
-        span = torch.arange(block, dtype=torch.int64, device=features.device)
+        span = torch.arange(block, dtype=torch.int64, device=store.device)
+        stateful = measure.state_width is not None
 
-        def score(ids_a, ids_b):
-            ca, cb = ids_a.clamp_max(n - 1), ids_b.clamp_max(n - 1)
-            fa, fb = features.take(ca), features.take(cb)
-            if measure_state is not None:
-                return measure(fa, fb, measure_state[ca], measure_state[cb])
-            return measure(fa, fb)
+        def rows(lo: int):
+            ids = (lo + span).clamp_max(n - 1)
+            return (store.gather(ids),
+                    store.gather_state(ids) if stateful else None)
 
-        def block_step(state, a0: int, b0: int):
+        def block_step(state, a0: int, b0: int, fa, sa):
+            fb, sb = rows(b0)
+            sims = (measure(fa, fb) if sa is None
+                    else measure(fa, fb, sa, sb)).to(torch.float32)
             ids_a, ids_b = a0 + span, b0 + span
-            sims = score(ids_a, ids_b).to(torch.float32)
             keep = (ids_a[:, None] < ids_b[None, :]) & (ids_b[None, :] < n)
             if new_from > 0:
                 keep &= ids_b[None, :] >= new_from   # the new side
@@ -168,10 +183,11 @@ class AllPairsSource:
         def round_step(state, rep_index: int, probs=None, cache=None):
             del rep_index, probs, cache              # the sweep is exact
             for a0 in range(0, n, block):
+                fa, sa = rows(a0)
                 for b0 in range(a0, n, block):
                     if new_from > 0 and b0 + block <= new_from:
                         continue                     # both endpoints old
-                    state = block_step(state, a0, b0)
+                    state = block_step(state, a0, b0, fa, sa)
             comps = n * (n - 1) // 2 - new_from * (new_from - 1) // 2
             return state, {"comparisons": comps}, None
 
@@ -188,44 +204,47 @@ CANDIDATE_SOURCES: Dict[str, Callable] = {
 
 
 class _SingleDeviceBackend:
-    """The feature table, the measure's state table and the slab state on
-    one device.
+    """The features and the slab state on one device.
 
-    A stateful measure's per-point state (the learned measure's tower
-    embeddings) is computed once per build and, after an ``extend``, for
-    the appended rows only (``ensure_measure_state``).  With
-    ``cfg.pair_cache_slots`` > 0 the windowed rounds thread a pair-score
-    cache (expensive measures only); gids are append-only, so it stays
-    valid across an ``extend``.
+    The features ride in a :class:`ResidentFeatureStore`; a stateful
+    measure's per-point state (the learned measure's tower embeddings) is
+    computed once per build and, after an ``extend``, for the appended
+    rows only (``ensure_measure_state``), and kept in the store beside
+    them.  With ``cfg.pair_cache_slots`` > 0 the windowed rounds thread a
+    pair-score cache (expensive measures only); gids are append-only, so
+    it stays valid across an ``extend``.
     """
 
-    def __init__(self, features: PointFeatures, cfg: StarsConfig,
+    def __init__(self, store: ResidentFeatureStore, cfg: StarsConfig,
                  measure: Measure):
         name = cfg.source_name
         if name not in CANDIDATE_SOURCES:
             raise ValueError(f"unknown candidate source {name!r}; "
                              f"known: {sorted(CANDIDATE_SOURCES)}")
-        self.features = features
+        self.store = store
         self.measure = measure
         self.source = CANDIDATE_SOURCES[name](cfg, measure)
         # GraphBuilder admits the cache for an expensive measure over the
         # windowed sources only
         self.pair_cache = (
-            pc_lib.create(cfg.pair_cache_slots, device=features.device)
+            pc_lib.create(cfg.pair_cache_slots, device=store.device)
             if cfg.pair_cache_slots > 0 else None)
-        self.state_table: Optional[torch.Tensor] = None
         self._embedded = 0          # rows whose measure state is current
         # (new_from, refresh_below, refresh_fraction) -> bound round;
         # cleared by extend() (the table changed)
         self._bound: Dict = {}
 
     @property
+    def features(self) -> PointFeatures:
+        return self.store.features
+
+    @property
     def n(self) -> int:
-        return self.features.n
+        return self.store.n
 
     def init_state(self, capacity: int) -> acc_lib.EdgeAccumulator:
         return acc_lib.EdgeAccumulator.create(
-            self.n, capacity, device=self.features.device)
+            self.n, capacity, device=self.store.device)
 
     def grow_state(self, state, n: int, capacity: int):
         return acc_lib.grow(state, n, capacity)
@@ -240,11 +259,10 @@ class _SingleDeviceBackend:
         if n <= lo:
             return 0
         if lo == 0:
-            self.state_table = self.measure.precompute(self.features)
+            self.store.attach_state(self.measure.precompute(self.features))
         else:
             tail = self.features.map(lambda x: x[lo:n])
-            self.state_table = torch.cat(
-                [self.state_table, self.measure.precompute(tail)])
+            self.store.append_state(self.measure.precompute(tail))
         self._embedded = n
         self._bound = {}
         return n - lo
@@ -255,18 +273,15 @@ class _SingleDeviceBackend:
         key = (new_from, refresh_below, refresh_fraction)
         if key not in self._bound:
             self._bound[key] = self.source.bind(
-                self.features, new_from, refresh_below, refresh_fraction,
-                measure_state=self.state_table)
+                self.store, new_from, refresh_below, refresh_fraction)
         state, counters, self.pair_cache = self._bound[key](
             state, rep_index, refresh_probs, self.pair_cache)
         return state, counters
 
     def extend(self, new_features: PointFeatures) -> None:
-        """Append rows to the table on its device (the resident store's
-        ``append``); the rows keep their dtypes."""
-        if not isinstance(new_features, PointFeatures):
-            new_features = PointFeatures(dense=new_features)
-        self.features = self.features.concat(new_features)
+        """Append rows to the table on its device (set blocks in the
+        session's canonical dtypes; the dense dtype was checked equal)."""
+        self.store.append(_as_features(new_features, self.store.device))
         self._bound = {}
 
 
@@ -276,12 +291,218 @@ def _refresh_window_count(cfg: StarsConfig, n: int) -> int:
     return win_lib.window_slot_count(cfg.mode, n, cfg.window) // cfg.window
 
 
-def _check_ported(cfg: StarsConfig) -> None:
-    """Reject configs whose paths this port does not run yet, up front."""
-    if cfg.feature_store != "resident":
-        raise NotImplementedError(
-            f"StarsConfig.feature_store={cfg.feature_store!r} is not ported "
-            "yet (only 'resident'): it comes with a later slice of the port")
+def _padded_ids(lo: int, hi: int, count: int, n: int) -> np.ndarray:
+    """Row ids ``lo .. hi - 1`` padded with -1 to ``count`` entries, and
+    -1 for ids past ``n``: one shape for every chunk of a stream."""
+    ids = np.full(count, -1, np.int64)
+    ids[:hi - lo] = np.arange(lo, hi)
+    ids[ids >= n] = -1
+    return ids
+
+
+def _stream_sketch_words(store: PagedFeatureStore, cfg: StarsConfig,
+                         rep_seed: int) -> torch.Tensor:
+    """One repetition's (n, M) sketch words, streamed through a paged
+    store in row chunks of the pool's size (each padded to one shape with
+    -1 sentinels, which read zero rows and are dropped).
+
+    Equal to the one-shot sketch of the resident table: the SimHash
+    product is a row's own (float64, so its sign does not depend on the
+    chunk's shape).  Only one chunk of features is on the device at a
+    time; the words are an O(n) summary outside the feature budget.
+    """
+    n = store.n
+    chunk = max(store.page_rows, min(store.pool_pages * store.page_rows, n))
+    parts = []
+    for c0 in range(0, n, chunk):
+        rows = store.gather(_padded_ids(c0, min(c0 + chunk, n), chunk, n))
+        parts.append(lsh_lib.sketch(rows, cfg.family, rep_seed=rep_seed))
+    return torch.cat(parts)[:n]
+
+
+def _stream_embed_rows(store: PagedFeatureStore, measure: Measure,
+                       lo: int, hi: int) -> torch.Tensor:
+    """Measure-state rows ``lo .. hi - 1`` streamed through a paged store
+    in pool-sized chunks of one shape (sentinels read zero rows), each
+    embedded on the device and landed on the HOST, where the store pages
+    them back in under ``transfer_stats['embed_page_*']``.  A row's state
+    is the resident precompute's bit for bit (the measure embeds in fixed
+    blocks, ``similarity.measure.EMBED_BLOCK_ROWS``)."""
+    count = hi - lo
+    chunk = max(store.page_rows,
+                min(store.pool_pages * store.page_rows, count))
+    parts = []
+    for c0 in range(lo, hi, chunk):
+        rows = store.gather(_padded_ids(c0, min(c0 + chunk, hi), chunk,
+                                        hi))
+        parts.append(measure.precompute(rows).cpu())
+    return torch.cat(parts)[:count]
+
+
+class _PagedBackend:
+    """A single-device build over a host-paged feature table: ``n`` is
+    bounded by host memory, the device's feature bytes by the store's
+    page pool (``StarsConfig.feature_pool_bytes``).
+
+    A windowed repetition runs in three stages:
+
+      1. sketch: the hash words streamed through the store in pool-sized
+         row chunks (:func:`_stream_sketch_words`),
+      2. grid: the window grid built on the device from the words (gids,
+         validity and buckets are O(n) and stay there),
+      3. score: the grid walked in chunks of window rows sized so that a
+         chunk's gathered member block fits the pool (:meth:`_chunk_rows`);
+         each chunk's gids cross to the host (one sync a chunk, counted in
+         ``host_syncs``) to drive the store's gather, and the chunk goes
+         through the same ``_score_windows`` as a resident build, in its
+         row-subset mode (``row_offset=chunk start, total_rows=window
+         rows``), folded into the slabs chunk by chunk.
+
+    Sentinel slots of the padded last chunk gather zero rows and are not
+    valid, so they never score.  The per-chunk counters sum to the
+    resident totals.  The exact 'allpairs' source is ``AllPairsSource``'s
+    sweep, which reads its blocks through the store.
+    """
+
+    def __init__(self, store: PagedFeatureStore, cfg: StarsConfig,
+                 measure: Measure):
+        windowed = ("lsh-stars", "sorting-stars",
+                    "lsh-allpairs", "sorting-allpairs")
+        if cfg.source_name not in windowed + ("allpairs",):
+            raise ValueError(
+                f"unknown candidate source {cfg.source_name!r}; "
+                f"known: {sorted(CANDIDATE_SOURCES)}")
+        if cfg.hamming_prefilter_bits > 0:
+            raise NotImplementedError(
+                "feature_store='paged' does not support the Hamming "
+                "prefilter (its packed words would need their own paging); "
+                "unset hamming_prefilter_bits or use feature_store="
+                "'resident'")
+        self.store = store
+        self.cfg = cfg
+        self.measure = measure
+        self._embedded = 0           # rows whose measure state is current
+        self.host_syncs = 0          # chunk gids copied to the host
+
+    @property
+    def n(self) -> int:
+        return self.store.n
+
+    # the slabs: as on the resident backend (O(n k) device tensors,
+    # outside the feature pool's budget)
+    def init_state(self, capacity: int) -> acc_lib.EdgeAccumulator:
+        return acc_lib.EdgeAccumulator.create(
+            self.n, capacity, device=self.store.device)
+
+    def grow_state(self, state, n: int, capacity: int):
+        return acc_lib.grow(state, n, capacity)
+
+    def ensure_measure_state(self) -> int:
+        """Stream-embed the rows not yet in the store's state table (all
+        of them first, then an extend's tail); returns how many rows it
+        embedded (0 for a stateless measure)."""
+        if self.measure.state_width is None:
+            return 0
+        n, lo = self.n, self._embedded
+        if n <= lo:
+            return 0
+        rows = _stream_embed_rows(self.store, self.measure, lo, n)
+        if lo == 0:
+            self.store.attach_state(rows)
+        else:
+            self.store.append_state(rows)
+        self._embedded = n
+        return n - lo
+
+    def _chunk_rows(self, nw: int) -> int:
+        """Window rows a scoring chunk: the most whose gathered (C x
+        window, d [+ state width]) block fits the pool's budget."""
+        width = self.store.d + (self.measure.state_width or 0)
+        itemsize = torch.empty((), dtype=self.store.dtype).element_size()
+        row_bytes = self.cfg.window * width * itemsize
+        return int(max(1, min(nw, self.store.pool_bytes // max(row_bytes,
+                                                               1))))
+
+    def run_round(self, state, rep_index: int, new_from: int,
+                  refresh_below: int = 0, refresh_fraction: float = 1.0,
+                  refresh_probs: Optional[np.ndarray] = None):
+        if self.cfg.source_name == "allpairs":
+            state, counters, _ = AllPairsSource(self.cfg, self.measure).bind(
+                self.store, new_from, refresh_below)(state, rep_index)
+            return state, counters
+        cfg, store = self.cfg, self.store
+        dev = store.device
+        k_tie, k_shift, k_lead, k_refresh = _rep_keys(cfg, rep_index)
+        words = _stream_sketch_words(store, cfg, _rep_seed(cfg, rep_index))
+        win = _rep_window_grid(cfg, words, k_tie, k_shift)
+        del words
+        nw, w_sz = win.gid.shape
+        c_rows = self._chunk_rows(nw)
+        pad = (-nw) % c_rows
+
+        def padded(t, fill):
+            return torch.cat([t, t.new_full((pad, w_sz), fill)])
+
+        gid = padded(win.gid, -1)
+        valid = padded(win.valid, False)
+        bucket = padded(win.bucket, win_lib.PAD_BUCKET)
+        probs = None
+        if refresh_below > 0:
+            probs = as_tensor(
+                np.full(nw, refresh_fraction, np.float32)
+                if refresh_probs is None else refresh_probs,
+                device=dev, dtype=torch.float32)
+        member_index = torch.arange(c_rows * w_sz, device=dev).reshape(
+            c_rows, w_sz)
+        stateful = self.measure.state_width is not None
+        per_chunk = []
+        for c0 in range(0, nw, c_rows):
+            gid_c = gid[c0:c0 + c_rows]
+            gid_np = gid_c.cpu().numpy()
+            self.host_syncs += 1
+            block = store.gather(gid_np).dense.reshape(c_rows * w_sz, -1)
+            mstate = (store.gather_state(gid_np).reshape(c_rows * w_sz, -1)
+                      if stateful else None)
+            out = _score_windows(
+                cfg, PointFeatures(dense=block), None,
+                win_lib.Windows(gid=gid_c, valid=valid[c0:c0 + c_rows],
+                                bucket=bucket[c0:c0 + c_rows]),
+                k_lead, new_from=new_from, refresh_below=refresh_below,
+                refresh_fraction=refresh_fraction, k_refresh=k_refresh,
+                refresh_probs=probs, measure=self.measure, state=mstate,
+                row_offset=c0, total_rows=nw, member_index=member_index)
+            state = acc_lib.accumulate(state, out["src"], out["dst"],
+                                       out["w"], out["emit"])
+            per_chunk.append({k: out[k] for k in _COUNTERS})
+        counters = {}
+        for key in _COUNTERS:
+            vals = [c[key] for c in per_chunk]
+            counters[key] = (torch.cat([v.reshape(-1) for v in vals])
+                             if isinstance(vals[0], torch.Tensor)
+                             else sum(vals))
+        return state, counters
+
+    def extend(self, new_features: PointFeatures) -> None:
+        self.store.append(new_features)
+
+
+def as_feature_store(features, cfg: StarsConfig,
+                     device: torch.device) -> FeatureStore:
+    """The session's FeatureStore: one passed in as it is, or the store
+    ``cfg.feature_store`` names around raw features (a paged store takes a
+    host array or tensor straight into its host pages, with no round trip
+    through the device)."""
+    if isinstance(features, FeatureStore):
+        return features
+    if cfg.feature_store == "paged":
+        if not isinstance(features, PointFeatures):
+            features = PointFeatures(dense=features)
+        return make_feature_store(features, "paged",
+                                  page_rows=cfg.feature_page_rows,
+                                  pool_bytes=cfg.feature_pool_bytes,
+                                  device=device)
+    return make_feature_store(_as_features(features, device),
+                              cfg.feature_store)
 
 
 def _as_features(features, device: torch.device) -> PointFeatures:
@@ -353,7 +574,9 @@ class GraphBuilder:
     Args:
       features: PointFeatures (dense and / or set blocks), or a tensor or
                 an (n, d) array of dense features (float64 is taken as
-                float32, as the JAX package does without x64).
+                float32, as the JAX package does without x64), or a
+                :class:`FeatureStore`; ``cfg.feature_store='paged'`` keeps
+                the dense table in host pages.
       cfg:      StarsConfig; ``cfg.source_name`` selects the candidate
                 source, ``cfg.degree_cap`` sizes the slabs.
       device:   where the session runs: ``None`` means CUDA, and raises
@@ -374,7 +597,6 @@ class GraphBuilder:
                  device: DeviceLike = None,
                  learned_apply: Optional[Callable] = None,
                  measure: Optional[Measure] = None):
-        _check_ported(cfg)
         if measure is not None and learned_apply is not None:
             raise ValueError(
                 "pass either measure= or the legacy learned_apply=, not "
@@ -393,19 +615,28 @@ class GraphBuilder:
             learned=measure if measure is not None else learned_apply
         ).to(self.device)
         self._cache_on = cfg.pair_cache_slots > 0
+        store = as_feature_store(features, cfg, self.device)
+        self._store = store
+        paged = isinstance(store, PagedFeatureStore)
         if self._cache_on:
             if not self._measure.expensive:
                 raise ValueError(
                     f"pair_cache_slots={cfg.pair_cache_slots} only pays "
                     f"for an expensive (learned) measure; "
                     f"measure={cfg.measure!r} is closed-form")
+            if paged:
+                raise NotImplementedError(
+                    "the pair-score cache is device-resident state; it does "
+                    "not combine with feature_store='paged' (set "
+                    "pair_cache_slots=0)")
             if cfg.source_name == "allpairs":
                 raise ValueError(
                     "the exact 'allpairs' sweep scores every pair once: "
                     "a pair cache cannot hit (set pair_cache_slots=0)")
         self._embed_rows = 0
-        self._backend = _SingleDeviceBackend(
-            _as_features(features, self.device), cfg, self._measure)
+        self._backend = (_PagedBackend(store, cfg, self._measure) if paged
+                         else _SingleDeviceBackend(store, cfg,
+                                                   self._measure))
         self._reps_done = 0
         self._counters: List[Dict] = []
         self._stats_base: Dict[str, int] = {}
@@ -431,6 +662,11 @@ class GraphBuilder:
     def n(self) -> int:
         """Number of points in the session."""
         return self._backend.n
+
+    @property
+    def feature_store(self) -> FeatureStore:
+        """The session's FeatureStore (resident or paged)."""
+        return self._store
 
     @property
     def measure(self) -> Measure:
@@ -473,8 +709,8 @@ class GraphBuilder:
         return self
 
     def _validate_extend(self, nf: PointFeatures) -> None:
-        """Refuse a batch the table cannot take, naming the argument."""
-        table = self._backend.features
+        """Refuse a batch the store cannot take, naming the argument."""
+        table = self._store.checkpoint_view()
         for name in ("dense", "set_idx", "set_w", "set_mask"):
             have, new = getattr(table, name), getattr(nf, name)
             if (have is None) != (new is None):
@@ -532,9 +768,7 @@ class GraphBuilder:
             return self
         self._validate_extend(nf)
         old_n = self.n
-        # the dense dtype was checked equal; set blocks take the
-        # session's canonical dtypes, as at construction
-        self._backend.extend(_as_features(nf, self.device))
+        self._backend.extend(nf)
         self._refresh_below = old_n
         self._run_rounds(reps, new_from=old_n, progress=progress)
         if self.cfg.refresh_rate > 0 and self.cfg.source_name != "allpairs":
@@ -679,6 +913,37 @@ class GraphBuilder:
     def slab_state(self) -> acc_lib.EdgeAccumulator:
         """The live device-resident (n, k) slabs (no host transfer)."""
         return self._ensure_state()
+
+    def cluster(self, method: str = "affinity", *, target_clusters: int = 1,
+                max_rounds: int = 32, min_similarity: Optional[float] = None,
+                return_info: bool = False):
+        """Cluster the current slab graph on the device, with no edge fetch.
+
+        ``"components"``: the connected components of the slabs'
+        symmetric closure, each labelled by its smallest id (the host
+        union-find's labels on the finalized graph).  ``"affinity"``:
+        average-linkage Affinity (Boruvka rounds over the slabs' original
+        weights), densified labels; stops at ``target_clusters`` live
+        clusters, when no inter-cluster edge is left (at least
+        ``min_similarity``, when given), or after ``max_rounds``.  Only
+        the (n,) label vector crosses to the host, metered under
+        ``transfer_stats['cluster_label_*']``.  Returns (n,) int64 numpy
+        labels, or (labels, info) with ``return_info``.
+        """
+        from repro_torch.graph import cluster as cluster_lib
+        state = self._ensure_state()
+        if method == "components":
+            labels, info = cluster_lib.connected_components_slabs(
+                state.nbr, n=self.n, max_rounds=max_rounds)
+        elif method == "affinity":
+            labels, info = cluster_lib.affinity_slabs(
+                state.nbr, state.w, n=self.n,
+                target_clusters=target_clusters, max_rounds=max_rounds,
+                min_similarity=min_similarity)
+        else:
+            raise ValueError(f"unknown clustering method {method!r}; "
+                             f"known: 'components', 'affinity'")
+        return (labels, info) if return_info else labels
 
     def row_versions(self) -> np.ndarray:
         """The (n,) int64 logical row versions (fetches only the int32

@@ -68,9 +68,7 @@ class StarsConfig:
 
     The same fields and defaults as ``repro.core.stars.StarsConfig``, so
     one can be built from the other's fields; see that class for what
-    each field means.  The paged feature store is not ported yet:
-    :class:`GraphBuilder` rejects ``feature_store`` other than
-    ``'resident'``.  ``score_chunk`` is carried but not read: the port
+    each field means.  ``score_chunk`` is carried but not read: the port
     sizes its scoring chunks by the device (:func:`score_chunk_rows`).
     """
 
@@ -133,23 +131,37 @@ def _scored_rows(nw: int, row_offset: int, total_rows: Optional[int],
 
 
 def _refresh_window_sample(k_refresh: prng.Key, nw: int, fraction: float,
-                           probs=None, *,
-                           device: torch.device) -> torch.Tensor:
+                           probs=None, *, device: torch.device,
+                           row_offset: int = 0,
+                           total_rows: Optional[int] = None,
+                           stride: int = 1) -> torch.Tensor:
     """(nw,) bool: the windows one refresh round rescores.
 
     A uniform draw from the repetition's ``k_refresh`` key, one per window
     row, kept where it falls below ``fraction`` or, when given, below the
     row's keep probability in ``probs`` (the host's float32 age-weighted
-    vector, ``GraphBuilder._next_refresh_probs``).  A probability of 1.0
-    or more keeps every window.  This is the single-device case of the
-    JAX package's ``windows.global_row_draw``: the draw covers the whole
-    grid, with no row offset or stride.
+    vector a global window row, ``GraphBuilder._next_refresh_probs``).  A
+    probability of 1.0 or more keeps every window.  The draw is issued at
+    the global row count and row-gathered (``windows.global_row_draw``),
+    so a call that scores rows ``row_offset + stride * [0, nw)`` of a
+    ``total_rows`` grid samples the windows the whole-grid call would;
+    rows past the grid read draw 2.0 and probability -1.0, never kept.
     """
-    draw = prng.uniform(k_refresh, (nw,), device=device)
+    draw = win_lib.global_row_draw(
+        lambda rows: prng.uniform(k_refresh, (rows,), device=device), nw,
+        row_offset, total_rows, fill=2.0, stride=stride)
     if probs is None:
         return draw < torch.tensor(fraction, dtype=torch.float32,
                                    device=device)
-    return draw < as_tensor(probs[:nw], device=device, dtype=torch.float32)
+    probs = as_tensor(probs, device=device, dtype=torch.float32)
+    return draw < win_lib.global_row_draw(
+        lambda rows: probs[:rows], nw, row_offset, total_rows, fill=-1.0,
+        stride=stride)
+
+
+def _rep_seed(cfg: StarsConfig, rep_index: int) -> int:
+    """The sketch's per-repetition seed, as the JAX package folds it."""
+    return (rep_index & 0xFFFFFFFF) ^ (cfg.seed & 0xFFFFFFFF)
 
 
 def _rep_keys(cfg: StarsConfig, rep_index: int):
@@ -280,7 +292,10 @@ def _rep_lsh_stars(cfg: StarsConfig, features: PointFeatures,
                    refresh_below: int = 0,
                    keep_win: Optional[torch.Tensor] = None,
                    measure: Optional[Measure] = None,
-                   state: Optional[torch.Tensor] = None):
+                   state: Optional[torch.Tensor] = None,
+                   row_offset: int = 0, total_rows: Optional[int] = None,
+                   stride: int = 1,
+                   member_index: Optional[torch.Tensor] = None):
     """Stars 1 scoring: every member compares to its bucket's leader only.
 
     The sort tiebreak is a fresh random priority, so the first slot of
@@ -293,17 +308,20 @@ def _rep_lsh_stars(cfg: StarsConfig, features: PointFeatures,
     past ``new_from`` (a new member reaches its old bucket-mates only
     through the leader, so the whole touched star is scored);
     ``refresh_below`` > 0 keeps pairs of old points in the windows of
-    ``keep_win``.
+    ``keep_win``.  ``row_offset`` / ``total_rows`` / ``stride`` /
+    ``member_index`` are :func:`_score_windows`' row-subset mode.
     """
     measure = _resolve_measure(cfg, measure)
     nw, w_sz = win.gid.shape
     dev = win.gid.device
+    fidx = win.gid if member_index is None else member_index
     is_head = torch.ones_like(win.valid)
     is_head[:, 1:] = win.bucket[:, 1:] != win.bucket[:, :-1]
     slot = torch.arange(w_sz, dtype=torch.int64, device=dev).expand(nw, w_sz)
     head_slot = torch.cummax(
         torch.where(is_head, slot, torch.zeros_like(slot)), dim=1).values
     head_gid = win.gid.gather(1, head_slot)
+    head_fidx = fidx.gather(1, head_slot)
     # an invalid head disables its whole run, as in the JAX package
     mask = win.valid & win.valid.gather(1, head_slot) & (head_slot != slot)
     if new_from > 0:
@@ -320,11 +338,11 @@ def _rep_lsh_stars(cfg: StarsConfig, features: PointFeatures,
     if prefilter is not None:
         pref_ops = mask.sum(1, dtype=torch.int32)
         ham = lsh_lib.hamming_pairwise(
-            prefilter[head_gid.clamp_min(0)][..., None, :],
-            prefilter[win.gid.clamp_min(0)][..., None, :])[..., 0, 0]
+            prefilter[head_fidx.clamp_min(0)][..., None, :],
+            prefilter[fidx.clamp_min(0)][..., None, :])[..., 0, 0]
         mask &= ham <= cfg.hamming_prefilter_max
-    sims = _score_chunked(measure, features, head_gid.reshape(-1, 1),
-                          win.gid.reshape(-1, 1), state)
+    sims = _score_chunked(measure, features, head_fidx.reshape(-1, 1),
+                          fidx.reshape(-1, 1), state)
     sims = sims.reshape(nw, w_sz)
     emit = _emit(mask, sims, cfg.r1)
     return dict(src=head_gid.reshape(-1), dst=win.gid.reshape(-1),
@@ -333,7 +351,8 @@ def _rep_lsh_stars(cfg: StarsConfig, features: PointFeatures,
                 emitted=emit.sum(1, dtype=torch.int32),
                 comparisons=mask.sum(1, dtype=torch.int32),
                 prefilter_ops=pref_ops,
-                scored_windows=_scored_rows(nw, 0, None))
+                scored_windows=_scored_rows(nw, row_offset, total_rows,
+                                            stride))
 
 
 def _rep_window_grid(cfg: StarsConfig, words: torch.Tensor,
@@ -379,9 +398,9 @@ def _rep_candidates(cfg: StarsConfig, features: PointFeatures,
     sample keeps (``refresh_probs``, else ``refresh_fraction``).  The masks
     act before the counters, so 'comparisons' counts what was scored.
     """
-    rep_seed = (rep_index & 0xFFFFFFFF) ^ (cfg.seed & 0xFFFFFFFF)
     k_tie, k_shift, k_lead, k_refresh = _rep_keys(cfg, rep_index)
-    words = lsh_lib.sketch(features, cfg.family, rep_seed=rep_seed)
+    words = lsh_lib.sketch(features, cfg.family,
+                           rep_seed=_rep_seed(cfg, rep_index))
     win = _rep_window_grid(cfg, words, k_tie, k_shift)
     del words
     return _score_windows(cfg, features, prefilter, win, k_lead,
@@ -425,7 +444,10 @@ def _score_windows(cfg: StarsConfig, features: PointFeatures,
                    k_refresh: Optional[prng.Key] = None,
                    refresh_probs: Optional[torch.Tensor] = None,
                    measure: Optional[Measure] = None,
-                   state: Optional[torch.Tensor] = None):
+                   state: Optional[torch.Tensor] = None,
+                   row_offset: int = 0, total_rows: Optional[int] = None,
+                   stride: int = 1,
+                   member_index: Optional[torch.Tensor] = None):
     """Score one repetition's windows into a masked candidate stream.
 
     LSH-Stars goes to :func:`_rep_lsh_stars`.  cosine / dot without the
@@ -436,22 +458,35 @@ def _score_windows(cfg: StarsConfig, features: PointFeatures,
     chunked branch: the mask chain over the whole repetition, the
     Hamming cut with the prefilter, then the tiles through the measure
     (``leader_score`` for cosine / dot, :func:`_score_chunked` otherwise).
+
+    Row-subset mode (the paged backend's chunks): ``win`` holds the
+    global window rows ``row_offset + stride * [0, nw)`` of a grid of
+    ``total_rows`` rows.  The leader and refresh draws are issued at the
+    global shape and row-gathered, so a chunk draws what the whole-grid
+    call draws for its rows.  ``member_index``, when given, is a (nw, W)
+    index grid into ``features`` (and ``state``) used for every gather
+    instead of ``win.gid``: the paged backend passes slot ids into the
+    chunk's gathered block.  Emitted src / dst are always global gids,
+    and ``scored_windows`` counts the real global rows the call owns.
     """
     measure = _resolve_measure(cfg, measure)
     nw, w_sz = win.gid.shape
     dev = win.gid.device
     refresh = refresh_below > 0
+    subset = dict(row_offset=row_offset, total_rows=total_rows,
+                  stride=stride)
     keep_win = (_refresh_window_sample(k_refresh, nw, refresh_fraction,
-                                       refresh_probs, device=dev)
+                                       refresh_probs, device=dev, **subset)
                 if refresh else
                 torch.ones((nw,), dtype=torch.bool, device=dev))
     if cfg.mode == "lsh" and cfg.scoring == "stars":
         return _rep_lsh_stars(cfg, features, prefilter, win,
                               new_from=new_from, refresh_below=refresh_below,
-                              keep_win=keep_win, measure=measure, state=state)
+                              keep_win=keep_win, measure=measure, state=state,
+                              member_index=member_index, **subset)
     if cfg.scoring == "stars":
         leader_slot, leader_ok = win_lib.sample_leaders(
-            win, s=cfg.leaders, key=k_lead)
+            win, s=cfg.leaders, key=k_lead, **subset)
     elif cfg.scoring == "allpairs":
         leader_slot = torch.arange(w_sz, dtype=torch.int32, device=dev)
         leader_slot = leader_slot.expand(nw, w_sz)
@@ -459,12 +494,14 @@ def _score_windows(cfg: StarsConfig, features: PointFeatures,
     else:
         raise ValueError(f"unknown scoring {cfg.scoring!r}")
     slot64 = leader_slot.long()
+    fidx = win.gid if member_index is None else member_index
     lead_gid = win.gid.gather(1, slot64)
+    lead_fidx = fidx.gather(1, slot64)
     lead_bucket = win.bucket.gather(1, slot64)
     out = {}
     if prefilter is None and _kernel_scored(measure, features):
-        lead = masked_take(features, lead_gid).dense
-        memb = masked_take(features, win.gid).dense
+        lead = masked_take(features, lead_fidx).dense
+        memb = masked_take(features, fidx).dense
         sims, emit, comparisons, emitted = kernel_ops.window_score(
             lead.contiguous(), memb.contiguous(), leader_slot.contiguous(),
             lead_gid, win.gid, leader_ok.contiguous(), win.valid,
@@ -480,11 +517,11 @@ def _score_windows(cfg: StarsConfig, features: PointFeatures,
         pref_ops = torch.zeros((nw,), dtype=torch.int32, device=dev)
         if prefilter is not None:
             pref_ops = mask.sum((1, 2), dtype=torch.int32)
-            ham = lsh_lib.hamming_pairwise(prefilter[lead_gid.clamp_min(0)],
-                                           prefilter[win.gid.clamp_min(0)])
+            ham = lsh_lib.hamming_pairwise(prefilter[lead_fidx.clamp_min(0)],
+                                           prefilter[fidx.clamp_min(0)])
             mask &= ham <= cfg.hamming_prefilter_max
             del ham
-        sims = _score_chunked(measure, features, lead_gid, win.gid, state)
+        sims = _score_chunked(measure, features, lead_fidx, fidx, state)
         emit = _emit(mask, sims, cfg.r1)
         comparisons = mask.sum((1, 2), dtype=torch.int32)
         emitted = emit.sum((1, 2), dtype=torch.int32)
@@ -495,7 +532,8 @@ def _score_windows(cfg: StarsConfig, features: PointFeatures,
                 w=sims.reshape(-1), emit=emit.reshape(-1),
                 emitted=emitted, comparisons=comparisons,
                 prefilter_ops=pref_ops,
-                scored_windows=_scored_rows(nw, 0, None), **out)
+                scored_windows=_scored_rows(nw, row_offset, total_rows,
+                                            stride), **out)
 
 
 def build_graph(features, cfg: StarsConfig, *,

@@ -36,12 +36,28 @@ _BIG = 2**31 - 1
 # through to_graph(), so "one device-to-host edge transfer per build" is
 # checkable; to_host() snapshots (checkpoints) and the delta stream's
 # fetches of changed rows (GraphBuilder.finalize(delta=True)) count
-# separately.
+# separately.  ``cluster_label_*`` meters GraphBuilder.cluster: its rounds
+# run on the device and only the (n,) int32 label vector crosses, so
+# ``edge_fetches`` / ``bytes`` stay untouched by any clustering.
+# ``feature_page_*`` meters the paged feature store
+# (similarity/store.py): host-to-device page faults and their bytes
+# (faults x page bytes), pool re-uses, and the high-water resident pool
+# bytes (feature and measure-state pages together); ``embed_page_*`` the
+# measure-state pages' share of the traffic.
 transfer_stats: Dict[str, int] = {"edge_fetches": 0, "bytes": 0,
                                   "checkpoint_fetches": 0,
                                   "checkpoint_bytes": 0,
                                   "delta_fetches": 0, "delta_bytes": 0,
-                                  "delta_rows": 0}
+                                  "delta_rows": 0,
+                                  "cluster_label_fetches": 0,
+                                  "cluster_label_bytes": 0,
+                                  "feature_page_bytes": 0,
+                                  "feature_page_faults": 0,
+                                  "feature_page_hits": 0,
+                                  "feature_page_peak_bytes": 0,
+                                  "embed_page_bytes": 0,
+                                  "embed_page_faults": 0,
+                                  "embed_page_hits": 0}
 
 
 def reset_transfer_stats() -> None:

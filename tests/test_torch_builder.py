@@ -114,11 +114,11 @@ def test_stars_config_mirrors_jax_fields_and_defaults():
     dict(feature_store="paged"), dict(measure="mixture"),
     dict(family=HashFamilyConfig("minhash"))])
 def test_unported_configs_raise(change):
-    """Of the configs the port refused before its measure layer, only the
-    paged feature store still raises ``NotImplementedError``.  The others
-    behave as in the JAX package: the pair cache refuses a closed-form
-    measure and 'learned' needs a model (``ValueError``), and the set
-    families and measures build on points with dense and set blocks."""
+    """Every config the port once refused now behaves as in the JAX
+    package: the pair cache refuses a closed-form measure and 'learned'
+    needs a model (``ValueError``); the set families and measures build on
+    points with dense and set blocks, and the paged feature store builds
+    from their dense block (it is dense-only)."""
     rs = np.random.RandomState(0)
     x = PointFeatures(
         dense=torch.from_numpy(rs.randn(40, 4).astype(np.float32)),
@@ -126,10 +126,7 @@ def test_unported_configs_raise(change):
         set_w=torch.ones((40, 4)), set_mask=torch.ones((40, 4), dtype=bool))
     cfg = dataclasses.replace(StarsConfig(r=2, window=8, leaders=2,
                                           degree_cap=4), **change)
-    if cfg.feature_store == "paged":
-        with pytest.raises(NotImplementedError):
-            GraphBuilder(x, cfg, device="cpu")
-    elif cfg.pair_cache_slots or cfg.measure == "learned":
+    if cfg.pair_cache_slots or cfg.measure == "learned":
         with pytest.raises(ValueError):
             GraphBuilder(x, cfg, device="cpu")
     else:
@@ -138,14 +135,17 @@ def test_unported_configs_raise(change):
 
 
 def test_unported_session_calls_raise():
-    """``cluster`` waits for the serving-loop slice: the session has no
-    such call yet.  Delta finalize is ported and returns a delta."""
+    """``cluster`` is ported: it returns one label a point and refuses an
+    unknown method.  Delta finalize returns a delta."""
     from repro_torch.service.delta import SlabDelta
     x = np.random.RandomState(0).randn(40, 8).astype(np.float32)
     b = GraphBuilder(x, StarsConfig(r=1, window=8, leaders=2),
                      device="cpu").add_reps()
-    with pytest.raises(AttributeError):
-        b.cluster()
+    labels = b.cluster()
+    assert labels.shape == (40,) and labels.dtype == np.int64
+    assert b.cluster("components").shape == (40,)
+    with pytest.raises(ValueError, match="unknown clustering method"):
+        b.cluster("kmeans")
     assert isinstance(b.finalize(delta=True), SlabDelta)
     assert b.finalize().num_edges > 0
 
@@ -172,7 +172,9 @@ import repro_torch.kernels.ops, repro_torch.graph.metrics, \\
     repro_torch.graph.affinity, repro_torch.testing, \\
     repro_torch.core.convert, repro_torch.service.delta, \\
     repro_torch.graph.components, repro_torch.graph.single_linkage, \\
-    repro_torch.data, repro_torch.similarity.pair_cache
+    repro_torch.data, repro_torch.similarity.pair_cache, \\
+    repro_torch.similarity.store, repro_torch.graph.cluster, \\
+    repro_torch.service.session
 assert "jax" not in sys.modules or sys.modules["jax"] is None
 assert not any(m == "repro" or m.startswith("repro.") for m in sys.modules)
 x = np.random.RandomState(0).randn(40, 8).astype(np.float32)
