@@ -20,6 +20,11 @@ Phases, one JSON line each; any failed check exits non-zero:
               its shape.  topk_merge on accumulator-shaped rows, on random
               rows and on rows that break its merge's preconditions (each
               counted, and merged by its in-launch sort).
+              flash_attention's row log-sum-exp (both designs) against
+              mha_lse_ref's; flash_attention_bwd (the gradient, with no
+              TPU counterpart) in fp32 and bf16 against mha_bwd_ref and
+              autograd through mha_ref, then at the training path's
+              shape beside SDPA's backward and the bound.
   4. e2e:     GraphBuilder(x, StarsConfig()).add_reps().finalize() at
               n = 2**20, d = 128 (clustered points made on the card from a
               seeded torch.Generator), with the kernels' launch counts over
@@ -32,8 +37,8 @@ Phases, one JSON line each; any failed check exits non-zero:
               slabs and stats equal e2e's bit for bit; page faults, hits
               and bytes a repetition, chunks and host syncs, the H2D rate
               beside a pinned copy loop's.
-  5. e2e_lsh: LSH-Stars (Stars 1) on the same points: SimHash M = 16,
-              bucket cap W = 10,000, r = 25.
+  5. e2e_lsh: LSH-Stars (Stars 1) on the first 2**19 points: SimHash
+              M = 16, bucket cap W = 10,000, r = 25.
   6. e2e_prefilter: the default SortingLSH build with the 64-bit Hamming
               prefilter (max distance 24), on the first 2**18 points.
   7. e2e_session: the build session's lifecycle on the same points:
@@ -43,18 +48,18 @@ Phases, one JSON line each; any failed check exits non-zero:
               window_score's launches by mask (none / new / refresh) 25 /
               25 / 2; the checkpoint restored into a second session (then
               the same extend and refresh) against the live slabs.  Then
-              e2e_session_delta: the same lifecycle on the first 2**17
+              e2e_session_delta: the same lifecycle on the first 2**16
               points, finalize(delta=True), and the delta replayed onto
               the checkpoint against the live slabs (host numpy).
   8. e2e_allpairs: the exact AllPair sweep (one topk_merge per block of
-              2,048 x 2,048 pairs) on the first 2**16 points: C(n, 2)
+              2,048 x 2,048 pairs) on the first 2**15 points: C(n, 2)
               comparisons and two-hop recall@10 >= 0.999; then the default
               Stars build on the same points for the comparison ratio.
      e2e_serve: a ServeSession over a resident build of the first
               2**20 - 16,384 points: four rounds of four inserts of 1,024
               points and two queries of 16 ids, then a components and an
               affinity clustering (1,000 target clusters), each step
-              timed; no edge fetch; four ids recomputed on the CPU; the
+              timed; no edge fetch; two ids recomputed on the CPU; the
               components labels checked as component minima on the card;
               the affinity labels' v-measure against the 1,000 classes.
      e2e_learned: the Amazon2m learned pipeline at n = 2**20 (d = 100,
@@ -70,7 +75,7 @@ Phases, one JSON line each; any failed check exits non-zero:
               the exact Jaccard AllPair sweep beside Stars on the first
               2**14 sets.
  9. lm_embed: gemma3-1b at full width and depth (random weights from a
-              seeded torch.Generator) embeds 4,096 sequences of 2,048
+              seeded torch.Generator) embeds 2,048 sequences of 2,048
               tokens with embed_corpus (every flash_attention launch on the
               tensor-core design), then the default Stars build over the
               embeddings and affinity clustering; one block profiled.
@@ -78,11 +83,23 @@ Phases, one JSON line each; any failed check exits non-zero:
               same model, and the decode steps' logits against forward's.
  11. lm_parity: gemma3's reduced config in fp32 on CUDA and on the CPU:
               forward, embed_corpus and greedy generate agree.
+     train_lm: launch/train.py::train_loop on gemma3-1b at full width
+              and depth, fp32, remat, 4 steps of 2 x 2,048 tokens: s / step,
+              tokens / s, losses, grad norms, peak memory, the attention
+              kernels' launches (forward and backward), a gradient in
+              every layer's attn_wq / wk / wv.
+     train_resume: examples/train_lm.py's 100m preset, 6 steps with a
+              checkpoint every 3, and a fresh loop resumed at 3: the
+              same state bit for bit.
+     train_learned: the two-tower model trained with the example's SGD
+              on LSH candidate pairs of the n = 2**20 Amazon2m-like points
+              (2,048 steps of 256 pairs), then a learned build with the
+              trained weights and the pair cache at 2**26 slots.
  12. parity:  the default, LSH-Stars, LSH all-pairs and prefilter builds
-              at n = 20,000, the default build without a degree cap
-              (merges of 9,998 entries a row) and the exact AllPair sweep
-              at n = 5,000 (rebuilt on CUDA with TF32 allowed: the same
-              weight bits), and e2e_session's lifecycle on the default,
+              at n = 20,000, the default build without a degree cap at
+              n = 3,000 (merges of 5,998 entries a row) and the exact
+              AllPair sweep at n = 5,000 (rebuilt on CUDA with TF32
+              allowed: the same weight bits), and e2e_session's lifecycle on the default,
               LSH-Stars and prefilter configs at n = 20,000 (with each
               device's delta replay), on CUDA and on the CPU (plain
               versions); stats equal, edge sets equal up to reported
@@ -100,9 +117,12 @@ Phases, one JSON line each; any failed check exits non-zero:
               page counters CUDA == CPU; a serve session with deltas on
               (replayed against the live slabs), queries and both
               clusterings (the card's programs on the CPU's slabs give
-              the CPU's labels).  The CPU builds run in a worker process
-              (``chip_smoke.py --parity-worker``, no card visible) that
-              starts after phase 3, so they overlap phases 4-11.
+              the CPU's labels).  Then two training jobs: 2 AdamW steps of
+              gemma3-1b at full width with 6 layers (seq 1,024), and a
+              LearnedSimilarity.loss gradient.  The CPU builds run in a
+              worker process (``chip_smoke.py --parity-worker``, no card
+              visible) that starts after phase 2, so they overlap the
+              card's phases.
 
 The last lines are the kernels' summary, the card's name and power limit
 as nvidia-smi reports them, and the result line.  Without CUDA, or without
@@ -124,9 +144,11 @@ FP32_FLOP_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
 FP64_FLOP_PER_S = 67e12         # H100 SXM fp64 on the tensor cores (DMMA)
 SEED = 0
 N_E2E, D_E2E = 1 << 20, 128
-# the prefilter build runs on the first 2**18 of the e2e points, so that
-# the whole script keeps within its time limit
+# the prefilter build runs on the first 2**18 of the e2e points and the
+# LSH-Stars build on the first 2**19 (2**20 until the training phases
+# came), so that the whole script keeps within its time limit
 N_PREFILTER = 1 << 18
+N_LSH = 1 << 19
 
 
 def emit(obj) -> None:
@@ -453,7 +475,7 @@ def check_topk_merge(torch, args, violations=None) -> int:
 # Other (n, k, kin): the tests' shapes, one slot a row, odd k well above
 # kin (a warp's scratch not a multiple of 16 bytes before it was rounded
 # up), and rows past the 4,096 entries the first design took: 4,096 and
-# 4,097 entries, 9,998 (k = kin = 4,999: the uncapped build at n = 5,000),
+# 4,097 entries, 9,998 (k = kin = 4,999: an uncapped build at n = 5,000),
 # 13,750 (the uncapped cap at n = 2**20, 25 x (250 + 25)), 24,000 (past
 # one block's shared memory: global scratch) and 70,000 (past 16-bit table
 # slots)
@@ -774,7 +796,33 @@ def check_flash(torch, args, causal, window):
     err = (got.float() - want.float()).abs().max().item()
     check(err <= FLASH_TOL[str(q.dtype).split(".")[-1]],
           f"{what}: differs by {err}")
+    check_lse(torch, what, q, k, v, causal, window, got)
     return err, ran[0]
+
+
+# The forward's row log-sum-exp (read by the backward) against
+# ref.mha_lse_ref's: values of order log(sk) + the largest score, summed
+# in another order (the tensor-core design in exp2 units with ex2.approx)
+LSE_TOL = 1e-4
+
+
+def check_lse(torch, what, q, k, v, causal, window, out):
+    """The forward asked for its log-sum-exp gives the same output bit
+    for bit (the pointer changes nothing else) and the plain version's
+    log-sum-exp within LSE_TOL."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    got, lse = fa.flash_attention(q, k, v, causal=causal, window=window,
+                                  return_lse=True)
+    _, want = ref.mha_lse_ref(q, k, v, causal=causal, window=window)
+    check(torch.equal(got, out), f"{what}: the output changes when the "
+          "log-sum-exp is written")
+    check(lse.dtype == torch.float32 and lse.shape == q.shape[:3],
+          f"{what}: lse {lse.dtype} {tuple(lse.shape)}")
+    # a row that sees no key is -inf in both
+    same = (lse == want) | (lse - want).abs().le(LSE_TOL)
+    err = torch.where(lse == want, 0.0, (lse - want).abs()).max().item()
+    check(bool(same.all()), f"{what}: the log-sum-exp differs by {err}")
 
 
 # The LM path's two calls: gemma3-1b (hq 4, hkv 1, head dim 256) on a
@@ -861,6 +909,172 @@ def phase_flash_attention(torch) -> dict:
             "shapes": shapes}
 
 
+# The backward's sweep: (b, hq, hkv, sq, sk, d), causal, window.  Head
+# dims 64, 128 and 256 (and 16 and 100, the FMA forward in bf16), GQA
+# groups of 1, 2, 4 and 8, causal, window 512 and non-causal (with and
+# without a window), sq == sk and sq < sk (right-aligned), lengths that
+# are not a multiple of the kernel's 32-row tiles
+FLASH_BWD_SWEEP = [((1, 1, 1, 77, 77, 64), True, None),
+                   ((2, 4, 1, 130, 130, 128), True, None),
+                   ((1, 8, 1, 100, 300, 256), True, None),
+                   ((1, 4, 1, 1024, 1024, 256), True, 512),
+                   ((1, 4, 2, 600, 700, 64), True, 512),
+                   ((1, 8, 1, 700, 700, 128), True, 512),
+                   ((2, 8, 8, 64, 64, 128), False, None),
+                   ((1, 4, 1, 70, 200, 256), False, None),
+                   ((1, 8, 1, 33, 97, 128), False, 40),
+                   ((1, 2, 1, 40, 40, 16), True, None),
+                   ((1, 3, 3, 50, 50, 100), True, 20)]
+# Largest difference over the largest gradient (at least 1): against
+# ref.mha_bwd_ref on the same o and lse, fp32 sums in another order, bf16
+# outputs rounded once; against autograd through ref.mha_ref, which
+# takes delta from the unrounded output, bf16 differs by a few ulps more
+FLASH_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+FLASH_BWD_AUTOGRAD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+# The training path's two calls: gemma3-1b in fp32 (hq 4, hkv 1, head
+# dim 256), a batch of 2 sequences of 2,048 tokens, global and local
+# (window 512) layers
+FLASH_BWD_PATH = (2, 4, 1, 2048, 2048, 256)
+
+
+def rel_err(got, want) -> float:
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp(min=1.0)).item()
+
+
+def check_flash_bwd(torch, args, causal, window) -> dict:
+    """The backward kernel on one case (q, k, v, do) against
+    ref.mha_bwd_ref (on the forward kernel's own o and lse) and against
+    autograd through ref.mha_ref, which reads neither; the forward's o
+    and lse first (check_flash); the FlashAttention Function's gradients
+    equal the kernel's.  Returns the largest differences."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+    q, k, v, do = args
+    dtype = q.dtype
+    what = (f"flash_attention_bwd {tuple(q.shape)} x {tuple(k.shape)} "
+            f"{dtype} causal={causal} window={window}")
+    fwd_err, _ = check_flash(torch, (q, k, v), causal, window)
+    o, lse = fa.flash_attention(q, k, v, causal=causal, window=window,
+                                return_lse=True)
+    got = fa.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
+                                 window=window)
+    want = ref.mha_bwd_ref(q, k, v, o, do, lse, causal=causal,
+                           window=window)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    auto = torch.autograd.grad(
+        ref.mha_ref(*leaves, causal=causal, window=window), leaves, do)
+    fn_leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    via_fn = torch.autograd.grad(
+        ops.attention(*fn_leaves, causal=causal, window=window), fn_leaves,
+        do)
+    torch.cuda.synchronize()
+    name = str(dtype).split(".")[-1]
+    errs = [max(rel_err(a, b) for a, b in zip(got, w)) for w in (want, auto)]
+    for g, w in zip(got, want):
+        check(g.dtype == dtype and g.shape == w.shape, f"{what}: shape")
+    check(all(bool(torch.isfinite(g).all()) for g in got),
+          f"{what}: non-finite gradient")
+    check(errs[0] <= FLASH_BWD_TOL[name],
+          f"{what}: differs from mha_bwd_ref by {errs[0]}")
+    check(errs[1] <= FLASH_BWD_AUTOGRAD_TOL[name],
+          f"{what}: differs from autograd through mha_ref by {errs[1]}")
+    check(all(torch.equal(a, b) for a, b in zip(got, via_fn)),
+          f"{what}: the FlashAttention Function's gradients are not the "
+          "kernel's")
+    return {"forward_max_abs_err": fwd_err, "rel_err_vs_plain": errs[0],
+            "rel_err_vs_autograd": errs[1],
+            "max_abs_err": max((a.float() - w.float()).abs().max().item()
+                               for a, w in zip(got, want))}
+
+
+def flash_bwd_inputs(torch, gen, shape, dtype):
+    q, k, v = flash_inputs(torch, gen, shape, dtype)
+    return q, k, v, torch.randn(q.shape, generator=gen,
+                                device="cuda").to(dtype)
+
+
+def phase_flash_attention_bwd(torch) -> dict:
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    for dtype in (torch.float32, torch.bfloat16):
+        errs = [check_flash_bwd(
+            torch, flash_bwd_inputs(torch, gen, shape, dtype), causal,
+            window) for shape, causal, window in FLASH_BWD_SWEEP]
+        emit({"phase": "kernels", "kernel": "flash_attention_bwd",
+              "dtype": str(dtype), "cases": len(errs),
+              **{f"max_{key}": max(e[key] for e in errs)
+                 for key in ("rel_err_vs_plain", "rel_err_vs_autograd",
+                             "forward_max_abs_err")}})
+    b, hq, hkv, sq, sk, d = FLASH_BWD_PATH
+    q, k, v, do = flash_bwd_inputs(torch, gen, FLASH_BWD_PATH, torch.float32)
+    check(fa._design(q.dtype, d) == "fma",
+          "flash_attention_bwd: the training path's forward is not the fma "
+          "design")
+    shapes = []
+    for label, window in (("global", None), ("local", 512)):
+        # the forward's o and lse, and the gradients against autograd,
+        # at the path's own shape
+        errs = check_flash_bwd(torch, (q, k, v, do), True, window)
+        torch.cuda.empty_cache()
+        o, lse = fa.flash_attention(q, k, v, causal=True, window=window,
+                                    return_lse=True)
+        args = (q, k, v, o, do, lse)
+        kw = dict(causal=True, window=window)
+        ms = cuda_ms(torch, lambda: fa.flash_attention_bwd(*args, **kw), 10)
+        plain_ms = cuda_ms(torch, lambda: ref.mha_bwd_ref(*args, **kw), 2)
+        # the training path's forward: the FMA design with the lse
+        fwd_ms = cuda_ms(torch, lambda: fa.flash_attention(
+            q, k, v, return_lse=True, **kw), 10)
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        if window is None:
+            out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                                 enable_gqa=True)
+        else:
+            pos = torch.arange(sq, device="cuda")
+            band = (pos[None, :] <= pos[:, None]) \
+                & (pos[None, :] > pos[:, None] - window)
+            out = F.scaled_dot_product_attention(*leaves, attn_mask=band,
+                                                 enable_gqa=True)
+        library_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+            out, leaves, do, retain_graph=True), 5)
+        del out, leaves
+        pairs = visible_pairs(sq, sk, True, window)
+        moved = nbytes(q, k, v, o, do, lse) + nbytes(q, k, v)
+        flops = 10.0 * d * pairs * b * hq        # five products
+        row = {"at": label, "shape": list(FLASH_BWD_PATH), "window": window,
+               "dtype": "float32", "max_abs_err": errs["max_abs_err"],
+               "max_rel_err": errs["rel_err_vs_plain"],
+               "max_rel_err_vs_autograd": errs["rel_err_vs_autograd"],
+               "forward_max_abs_err": errs["forward_max_abs_err"], "ms": ms,
+               "plain_ms": plain_ms, "library_ms": library_ms,
+               "forward_fma_ms": fwd_ms,
+               "library": "backward of torch.nn.functional."
+                          "scaled_dot_product_attention",
+               "visible_pairs_per_head": pairs,
+               "contract_tflop_per_s": flops / ms / 1e9,
+               **bound(moved, flops, FP32_FLOP_PER_S),
+               # S and dP are computed in both passes: seven products
+               "executed_bound_ms": bound(moved, 1.4 * flops,
+                                          FP32_FLOP_PER_S)["bound_ms"]}
+        emit({"phase": "kernels", "kernel": "flash_attention_bwd", **row})
+        shapes.append(row)
+        torch.cuda.empty_cache()
+    local = shapes[1]
+    return {"name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:93 (its "
+                        "backward: the JAX package differentiates "
+                        "src/repro/kernels/ref.py:240 mha_ref)",
+            "max_abs_err": max(r["max_abs_err"] for r in shapes),
+            "max_rel_err": max(r["max_rel_err"] for r in shapes),
+            **{k: local[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms")},
+            "shapes": shapes}
+
+
 def clustered_points(torch, n, d, classes, spread, seed, device,
                      with_labels=False):
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -873,22 +1087,28 @@ def clustered_points(torch, n, d, classes, spread, seed, device,
 
 
 def kernel_modules():
+    """kernel name -> (its wrapper's module, the name of its launch
+    count there)."""
     from repro_torch.kernels import flash_attention, leader_score, simhash
     from repro_torch.kernels import topk_merge, window_score
-    return {"window_score": window_score, "topk_merge": topk_merge,
-            "leader_score": leader_score, "simhash_packed": simhash,
-            "flash_attention": flash_attention}
+    return {"window_score": (window_score, "launches"),
+            "topk_merge": (topk_merge, "launches"),
+            "leader_score": (leader_score, "launches"),
+            "simhash_packed": (simhash, "launches"),
+            "flash_attention": (flash_attention, "launches"),
+            "flash_attention_bwd": (flash_attention, "bwd_launches")}
 
 
 # per-kernel launch counts kept beside the total: by design, and (for
-# window_score) by the round mask the launch applied
+# window_score) by the round mask the launch applied; they belong to the
+# module's "launches" kernel
 SPLITS = {"design_launches": "by_design", "mask_launches": "by_mask"}
 
 
 def reset_launches() -> None:
     from repro_torch.kernels import topk_merge
-    for mod in kernel_modules().values():
-        mod.launches = 0
+    for mod, count in kernel_modules().values():
+        setattr(mod, count, 0)
         for attr in SPLITS:
             if hasattr(mod, attr):
                 counts = getattr(mod, attr)
@@ -903,10 +1123,10 @@ def read_launches() -> dict:
     its merge's preconditions."""
     from repro_torch.kernels import topk_merge
     out = {}
-    for name, mod in kernel_modules().items():
-        out[name] = mod.launches
+    for name, (mod, count) in kernel_modules().items():
+        out[name] = getattr(mod, count)
         for attr, suffix in SPLITS.items():
-            if hasattr(mod, attr):
+            if count == "launches" and hasattr(mod, attr):
                 out[f"{name}_{suffix}"] = dict(getattr(mod, attr))
     out["topk_merge_violations"] = int(topk_merge.violations("cuda").item())
     return out
@@ -1172,13 +1392,15 @@ def phase_e2e_prefilter(torch, x) -> dict:
 # an extend by the last 1/8 and two refresh rounds
 N_SESSION_BASE = N_E2E * 7 // 8
 SESSION_REFRESH_REPS = 2
-# e2e_session_delta: the same lifecycle on the first 2**17 points, then the
+# e2e_session_delta: the same lifecycle on the first 2**16 points, then the
 # delta stream.  Its host numpy (the JAX package's algorithm, one sort of
 # all entries of the changed rows) grows with every row an insert touches:
-# at 2**20 it would take the script past its time limit
-N_SESSION_DELTA = 1 << 17
-# e2e_allpairs: the exact sweep on the first 2**16 e2e points
-N_ALLPAIRS = 1 << 16
+# at 2**20 it would take the script past its time limit (2**17 until the
+# training phases came: 147 s of host on a slow machine)
+N_SESSION_DELTA = 1 << 16
+# e2e_allpairs: the exact sweep on the first 2**15 e2e points (2**16
+# until the training phases came)
+N_ALLPAIRS = 1 << 15
 
 
 def tie_ordered(torch, nbr, w):
@@ -1406,7 +1628,7 @@ def phase_e2e_allpairs(torch, x) -> dict:
 # points' classes).  Deltas are off: their host diff at this n would take
 # minutes (the parity phase's serve session streams them).
 SERVE_ROUNDS, SERVE_EXTENDS, SERVE_BATCH = 4, 4, 1024
-SERVE_QUERIES, SERVE_QUERY_IDS, SERVE_CHECKED_IDS = 2, 16, 4
+SERVE_QUERIES, SERVE_QUERY_IDS, SERVE_CHECKED_IDS = 2, 16, 2
 SERVE_TARGET_CLUSTERS = 1000
 N_SERVE_BASE = N_E2E - SERVE_ROUNDS * SERVE_EXTENDS * SERVE_BATCH
 
@@ -1845,7 +2067,8 @@ def profile_call(torch, path, fn, groups=None) -> dict:
 # tokens in blocks of LM_BLOCK, as examples/embed_and_cluster.py makes
 # its corpus: LM_CLASSES topics, 80 % of tokens from the topic's own slice
 # of 16 tokens
-LM_DOCS, LM_SEQ, LM_BLOCK, LM_CLASSES = 4096, 2048, 64, 64
+# 2,048 sequences (4,096 until the training phases came)
+LM_DOCS, LM_SEQ, LM_BLOCK, LM_CLASSES = 2048, 2048, 64, 64
 MATMUL_KERNELS = ("gemm", "nvjet", "xmma", "cutlass", "cublas")
 
 
@@ -2021,6 +2244,290 @@ def phase_lm(torch) -> dict:
     return launches
 
 
+# The training path (launch/train.py::train_loop) at gemma3-1b's full
+# width and depth, in fp32 as launch/train.py::main makes it, remat on:
+# a batch of 2 sequences of 2,048 tokens (the 512-token window cuts the
+# local layers' masks), TRAIN_LM_STEPS steps (warmup 10, so lr > 0 from
+# the first)
+TRAIN_LM_BATCH, TRAIN_LM_SEQ, TRAIN_LM_STEPS = 2, 2048, 4
+# The restart contract on examples/train_lm.py's 100m preset: N steps
+# with a checkpoint every K, then a fresh loop resumed at K, bit for bit
+TRAIN_RESUME_STEPS, TRAIN_RESUME_AT = 6, 3
+TRAIN_RESUME_BATCH, TRAIN_RESUME_SEQ = 4, 256
+# The paper's learned-similarity setting (examples/train_embedder.py at
+# n = 2**20): training pairs, SGD batch and rate, epochs
+TRAIN_PAIRS, TRAIN_PAIR_BATCH, TRAIN_SGD_LR, TRAIN_EPOCHS = 1 << 17, 256, \
+    0.05, 4
+TRAIN_DIR = ROOT / "build" / "train"
+
+
+def lm_100m_config(torch):
+    """examples/train_lm.py's 100m preset (a llama-family dense model)."""
+    from repro_torch.models import ModelConfig
+    return ModelConfig(
+        name="lm-100m", kind="dense", n_layers=8, d_model=768, n_heads=12,
+        n_kv_heads=4, d_ff=2048, vocab=32000, head_dim=64,
+        dtype=torch.float32, param_dtype=torch.float32, remat=True)
+
+
+def attention_moments_nonzero(torch, state) -> int:
+    """Layers whose attn_wq, attn_wk and attn_wv all have a nonzero first
+    moment: a gradient reached them."""
+    return sum(all(bool((layer[n] != 0).any()) for n in
+                   ("attn_wq", "attn_wk", "attn_wv"))
+               for layer in state.opt_state["m"]["layers"])
+
+
+def phase_train_lm(torch) -> dict:
+    """train_loop on gemma3-1b at full width and depth: s / step,
+    tokens / s, losses, grad norms, peak memory, the attention kernels'
+    launches.  Returns the run's launch counts."""
+    import dataclasses
+    import shutil
+    from repro_torch.configs import gemma3_1b
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.train import train_loop
+    cfg = dataclasses.replace(gemma3_1b.CONFIG, dtype=torch.float32,
+                              param_dtype=torch.float32)
+    ckpt = TRAIN_DIR / "lm"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    history = []
+    t = time.perf_counter()
+    state, reached = train_loop(
+        cfg, steps=TRAIN_LM_STEPS, batch=TRAIN_LM_BATCH, seq=TRAIN_LM_SEQ,
+        ckpt_dir=str(ckpt), save_every=TRAIN_LM_STEPS, log_every=1,
+        seed=SEED, history=history)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = read_launches()
+    designs = dict(fa.design_launches)
+    launches["flash_attention_by_design"] = designs
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for layer in state.params["layers"]
+                   for p in layer.values()) \
+        + sum(v.numel() for k, v in state.params.items() if k != "layers")
+    reached_layers = attention_moments_nonzero(torch, state)
+    steps_s = [h["seconds"] for h in history]
+    after_first = steps_s[1:] or steps_s
+    tokens = TRAIN_LM_BATCH * TRAIN_LM_SEQ
+    emit({"phase": "train_lm", "model": cfg.name, "params": n_params,
+          "layers": cfg.n_layers, "dtype": "float32", "remat": cfg.remat,
+          "batch": TRAIN_LM_BATCH, "seq": TRAIN_LM_SEQ, "steps": reached,
+          "seconds_per_step": steps_s,
+          "tokens_per_s": tokens * len(after_first) / sum(after_first),
+          "losses": [h["loss"] for h in history],
+          "grad_norms": [h["grad_norm"] for h in history],
+          "lrs": [h["lr"] for h in history],
+          "checkpoint_seconds": sum(h["save_seconds"] for h in history),
+          "wall_seconds": wall, "peak_device_bytes": peak,
+          "layers_with_attention_gradients": reached_layers,
+          "flash_attention_launches": launches["flash_attention"],
+          "flash_attention_launches_by_design": designs,
+          "flash_attention_bwd_launches": launches["flash_attention_bwd"]})
+    check(reached == TRAIN_LM_STEPS, f"train_lm: stopped at step {reached}")
+    check(all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+              for h in history), f"train_lm: non-finite loss {history}")
+    check(reached_layers == cfg.n_layers,
+          f"train_lm: only {reached_layers} of {cfg.n_layers} layers got "
+          "attention gradients")
+    check(launches["flash_attention_bwd"] == TRAIN_LM_STEPS * cfg.n_layers,
+          f"train_lm: the backward kernel launched "
+          f"{launches['flash_attention_bwd']} times")
+    check(launches["flash_attention"] >= launches["flash_attention_bwd"]
+          and designs == {"wgmma": 0, "fma": launches["flash_attention"]},
+          f"train_lm: forward launches {designs}")
+    del state
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_resume(torch) -> dict:
+    """TRAIN_RESUME_STEPS steps of the 100m preset with a checkpoint every
+    TRAIN_RESUME_AT, then a fresh train_loop that finds only the
+    checkpoint at TRAIN_RESUME_AT and runs to the end: its parameters,
+    moments and step equal the uninterrupted run's bit for bit.  Returns
+    the launch counts of both runs."""
+    import shutil
+    from repro_torch.launch.train import train_loop
+    from repro_torch.train._tree import leaves
+    cfg = lm_100m_config(torch)
+    root = TRAIN_DIR / "resume"
+    shutil.rmtree(root, ignore_errors=True)
+    kw = dict(steps=TRAIN_RESUME_STEPS, batch=TRAIN_RESUME_BATCH,
+              seq=TRAIN_RESUME_SEQ, save_every=TRAIN_RESUME_AT, seed=SEED,
+              lr=1e-3)
+    reset_launches()
+    hist_a, hist_b = [], []
+    t = time.perf_counter()
+    state_a, _ = train_loop(cfg, ckpt_dir=str(root / "a"), history=hist_a,
+                            **kw)
+    step_dir = f"step_{TRAIN_RESUME_AT:08d}"
+    shutil.copytree(root / "a" / step_dir, root / "b" / step_dir)
+    state_b, _ = train_loop(cfg, ckpt_dir=str(root / "b"), history=hist_b,
+                            **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = read_launches()
+    bits = lambda x: x.view(torch.int32) if x.dtype == torch.float32 else x
+    pairs = list(zip(leaves(state_a), leaves(state_b), strict=True))
+    differing = sum(not torch.equal(bits(a), bits(b)) for a, b in pairs)
+    emit({"phase": "train_resume", "model": cfg.name,
+          "steps": TRAIN_RESUME_STEPS, "resumed_at": TRAIN_RESUME_AT,
+          "batch": TRAIN_RESUME_BATCH, "seq": TRAIN_RESUME_SEQ,
+          "losses_uninterrupted": [h["loss"] for h in hist_a],
+          "losses_resumed": [h["loss"] for h in hist_b],
+          "leaves": len(pairs), "leaves_differing": differing,
+          "wall_seconds": wall,
+          "flash_attention_launches": launches["flash_attention"],
+          "flash_attention_bwd_launches": launches["flash_attention_bwd"]})
+    check(len(hist_b) == TRAIN_RESUME_STEPS - TRAIN_RESUME_AT,
+          f"train_resume: the second loop ran {len(hist_b)} steps")
+    check(differing == 0, f"train_resume: {differing} of {len(pairs)} "
+          "leaves differ from the uninterrupted run")
+    check([h["loss"] for h in hist_b]
+          == [h["loss"] for h in hist_a][TRAIN_RESUME_AT:],
+          "train_resume: the resumed losses differ")
+    del state_a, state_b
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def lsh_candidate_pairs(torch, feats, labels, n_pairs, seed=0):
+    """examples/train_embedder.py's training pairs: consecutive points of
+    equal SimHash bucket (M = 8, repetition seed 1) in bucket order, up to
+    half of ``n_pairs``, then a random point against a random
+    same-class point or a random point, half each; labels 1 for a
+    same-class pair.  Vectorised; host numpy with the port's sketch."""
+    import numpy as np
+    from repro_torch.core import lsh
+    rs = np.random.RandomState(seed)
+    words = lsh.sketch(feats, lsh.HashFamilyConfig("simhash", m=8),
+                       rep_seed=1)
+    key = lsh.bucket_key(words, lsh.HashFamilyConfig("simhash")).cpu() \
+        .numpy()
+    labels = labels.cpu().numpy()
+    order = np.argsort(key, kind="stable")
+    same = key[order[:-1]] == key[order[1:]]
+    i = order[:-1][same][:n_pairs // 2]
+    j = order[1:][same][:n_pairs // 2]
+    k = n_pairs - i.size
+    by_class = np.argsort(labels, kind="stable")
+    counts = np.bincount(labels, minlength=labels.max() + 1)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    i_extra = rs.randint(0, labels.size, k)
+    c = labels[i_extra]
+    j_pos = by_class[starts[c] + (rs.rand(k) * counts[c]).astype(np.int64)]
+    j_rand = rs.randint(0, labels.size, k)
+    j_extra = np.where(rs.rand(k) < 0.5, j_pos, j_rand)
+    i = np.concatenate([i, i_extra])
+    j = np.concatenate([j, j_extra])
+    return i, j, (labels[i] == labels[j]).astype(np.float32)
+
+
+def phase_train_learned(torch) -> dict:
+    """The paper's learned-similarity setting at n = 2**20: the two-tower
+    model at its defaults trained through LearnedSimilarity.loss with the
+    example's SGD on LSH candidate pairs, then one e2e_learned build with
+    the trained weights and the pair cache at PAIR_CACHE_SLOTS.  Returns
+    the build's launch counts."""
+    import numpy as np
+    from repro_torch import (GraphBuilder, HashFamilyConfig, LearnedMeasure,
+                             LearnedSimilarity, StarsConfig, TwoTowerConfig)
+    from repro_torch.data import products_like_points
+    feats, labels = products_like_points(
+        N_MEASURE, d=100, classes=47, nnz=16, dup_frac=0.3, seed=SEED,
+        device="cuda")
+    t = time.perf_counter()
+    i_all, j_all, y_all = lsh_candidate_pairs(torch, feats, labels,
+                                              TRAIN_PAIRS)
+    pairs_s = time.perf_counter() - t
+    model = LearnedSimilarity(TwoTowerConfig(in_dim=100))
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+    dev = lambda a: torch.as_tensor(a, device="cuda")
+    i_all, j_all, y_all = dev(i_all), dev(j_all), dev(y_all)
+
+    def loss_of(p, sel):
+        return model.loss(p, feats.take(i_all[sel]), feats.take(j_all[sel]),
+                          y_all[sel])
+
+    held = torch.arange(0, TRAIN_PAIRS, 16, device="cuda")
+    with torch.no_grad():
+        before = float(loss_of(params, held))
+    rs = np.random.RandomState(1)
+    steps = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(TRAIN_EPOCHS):
+        perm = dev(rs.permutation(TRAIN_PAIRS))
+        for a in range(0, TRAIN_PAIRS, TRAIN_PAIR_BATCH):
+            live = {k: v.detach().requires_grad_(True)
+                    for k, v in params.items()}
+            grads = torch.autograd.grad(
+                loss_of(live, perm[a:a + TRAIN_PAIR_BATCH]),
+                list(live.values()))
+            params = {k: p.detach() - TRAIN_SGD_LR * g
+                      for (k, p), g in zip(live.items(), grads)}
+            steps += 1
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t
+    with torch.no_grad():
+        after = float(loss_of(params, held))
+    cfg = StarsConfig(measure="learned",
+                      family=HashFamilyConfig("mixture", m=16),
+                      pair_cache_slots=PAIR_CACHE_SLOTS)
+    torch.cuda.synchronize()
+    reset_launches()
+    t = time.perf_counter()
+    builder = GraphBuilder(feats, cfg,
+                           measure=LearnedMeasure(model, params)).add_reps()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    launches = read_launches()
+    stats = builder.stats
+    state = builder.slab_state()
+    live_slots = state.nbr >= 0
+    emit({"phase": "train_learned", "n": N_MEASURE, "d": 100,
+          "pairs": TRAIN_PAIRS, "positive_share": float(y_all.mean()),
+          "pairs_seconds": pairs_s, "sgd_steps": steps,
+          "batch": TRAIN_PAIR_BATCH, "lr": TRAIN_SGD_LR,
+          "train_seconds": train_s, "held_out_loss_before": before,
+          "held_out_loss_after": after, "build_seconds": build_s,
+          "r": cfg.r, "pair_cache_slots": PAIR_CACHE_SLOTS,
+          "comparisons": stats["comparisons"],
+          "expensive_comparisons": stats["expensive_comparisons"],
+          "cache_hits": stats.get("cache_hits"),
+          "cache_misses": stats.get("cache_misses"),
+          "cache_evictions": stats.get("cache_evictions"),
+          "cache_hit_share": stats.get("cache_hits", 0)
+          / max(stats["comparisons"], 1),
+          "slab_edges": int(live_slots.sum()), "launches": launches})
+    check(math.isfinite(after) and after < before,
+          f"train_learned: the loss went {before} -> {after}")
+    for kernel, ok in MEASURE_PATH.items():
+        check(ok(launches[kernel]), f"train_learned: {kernel} launched "
+              f"{launches[kernel]} times: {launches}")
+    check(stats["cache_hits"] + stats["cache_misses"] == stats["comparisons"]
+          > 0 and stats["expensive_comparisons"] == stats["cache_misses"],
+          f"train_learned: cache accounting {stats}")
+    check(bool(torch.isfinite(state.w[live_slots]).all())
+          and bool(live_slots.any()), "train_learned: slabs out of range")
+    del builder, state, live_slots, feats, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train(torch) -> dict:
+    """The three training phases; returns their launch counts by path."""
+    return {"train_lm": phase_train_lm(torch),
+            "train_resume": phase_train_resume(torch),
+            "train_learned": phase_train_learned(torch)}
+
+
 # The parity builds: each config built on CUDA here and on the CPU in a
 # worker process (``--parity-worker``, no card visible, PARITY_THREADS
 # torch threads) that the script starts once the kernels are checked.
@@ -2040,9 +2547,10 @@ MEASURE_PARITY_R = 3
 
 def parity_configs():
     """name -> (config, n): the four builds at n = 20,000, the default
-    build without a degree cap at n = 5,000 (slabs of n - 1 = 4,999, so
-    the merges take rows of 9,998 entries), and the exact AllPair sweep
-    at n = 5,000."""
+    build without a degree cap at n = 3,000 (slabs of n - 1 = 2,999, so
+    the merges take rows of 5,998 entries, past the 4,096 that the first
+    merge kernel refused; 5,000 until the training phases came), and the
+    exact AllPair sweep at n = 5,000."""
     from repro_torch import HashFamilyConfig, StarsConfig
     m16 = HashFamilyConfig("simhash", m=16)
     return {"default": (StarsConfig(), 20_000),
@@ -2051,7 +2559,7 @@ def parity_configs():
                                          family=m16, window=1000, r=5),
                              20_000),
             "prefilter": (StarsConfig(**PREFILTER), 20_000),
-            "uncapped": (StarsConfig(degree_cap=None), 5_000),
+            "uncapped": (StarsConfig(degree_cap=None), 3_000),
             "allpairs": (StarsConfig(source="allpairs"), 5_000)}
 
 
@@ -2174,7 +2682,7 @@ def parity_inputs(torch) -> dict:
     learned measure's parameters."""
     out = {("dense", n): clustered_points(
         torch, n, 128, classes=1000, spread=0.05, seed=SEED + 3,
-        device="cuda").cpu() for n in (20_000, 5_000)}
+        device="cuda").cpu() for n in (20_000, 5_000, 3_000)}
     fields = lambda f: {k: (None if v is None else v.cpu())
                         for k, v in vars(f).items()}
     out["prod"] = fields(products_points(torch, N_MEASURE_PARITY))
@@ -2532,6 +3040,141 @@ def tf32_sweep_check(torch, name, job, inputs, g_gpu) -> dict:
     return {"tf32_allowed_equal": True}
 
 
+# Training parity: the same steps on CUDA and on the CPU (the worker).
+# gemma3-1b at full width with 6 layers (5 local, 1 global), 2 AdamW
+# steps of one sequence of 1,024 tokens; and a LearnedSimilarity.loss
+# gradient on 512 pairs of products-like points
+TRAIN_PARITY_LAYERS, TRAIN_PARITY_SEQ, TRAIN_PARITY_STEPS = 6, 1024, 2
+TRAIN_PARITY_LR = 3e-4
+# Losses within 1e-4 and grad norms within 1e-3 relative (the two
+# devices sum in other orders).  Parameters as tests/test_torch_train.py
+# holds them: every leaf keeps all but 0.1 % of its elements within
+# 1e-5.  AdamW's normalised step is about +-lr wherever the gradient is
+# near 0, so a few coordinates whose tiny gradients the devices sum to
+# another last bit move up to ~lr apart; the steps' learning rates
+# (3e-5 and 6e-5 in warm-up) move nearly every element by more than
+# 1e-5, so a skipped or garbled update fails.  The control: each leaf's
+# share of elements that the steps moved by more than 1e-5 from the
+# initial values must exceed that 0.1 %, or the check could not see a
+# skipped update.
+TRAIN_PARITY_LOSS_RTOL, TRAIN_PARITY_NORM_RTOL = 1e-4, 1e-3
+TRAIN_PARITY_ATOL, TRAIN_PARITY_SHARE = 1e-5, 1e-3
+LEARNED_LOSS_TOL = 1e-5
+
+
+def train_parity_jobs():
+    return ("train-gemma3-6l", "learned-loss")
+
+
+def train_parity_run(torch, name, device) -> dict:
+    """One training parity job on ``device``; inputs are drawn on the
+    CPU from the seed on both sides."""
+    import dataclasses
+    import numpy as np
+    t = time.perf_counter()
+    if name == "train-gemma3-6l":
+        from repro_torch.configs import gemma3_1b
+        from repro_torch.data import token_stream_batch
+        from repro_torch.models import init_params
+        from repro_torch.train import AdamWConfig, TrainState, make_train_step
+        from repro_torch.train._tree import leaves, tree_map
+        cfg = dataclasses.replace(
+            gemma3_1b.CONFIG, n_layers=TRAIN_PARITY_LAYERS,
+            dtype=torch.float32, param_dtype=torch.float32)
+        params = init_params(cfg, torch.Generator().manual_seed(SEED),
+                             device="cpu")
+        params = tree_map(lambda x: x.to(device), params)
+        opt = AdamWConfig(lr=TRAIN_PARITY_LR, warmup_steps=10,
+                          total_steps=100)
+        initial = [x.detach().clone() for x in leaves(params)]
+        state = TrainState.create(opt, params)
+        step = make_train_step(cfg, opt)
+        out = {"losses": [], "grad_norms": [], "lrs": []}
+        for i in range(TRAIN_PARITY_STEPS):
+            batch = {"tokens": token_stream_batch(
+                i, batch=1, seq_len=TRAIN_PARITY_SEQ, vocab=cfg.vocab,
+                seed=SEED, device=device)}
+            state, m = step(state, batch)
+            for key, metric in (("losses", "loss"),
+                                ("grad_norms", "grad_norm"), ("lrs", "lr")):
+                out[key].append(float(m[metric]))
+        out["params"] = [x.cpu() for x in leaves(state.params)]
+        # the control: the least share of a leaf the steps moved
+        out["least_leaf_share_moved"] = min(
+            (x - x0).abs().gt(TRAIN_PARITY_ATOL).double().mean().item()
+            for x, x0 in zip(leaves(state.params), initial))
+        del initial
+    else:
+        from repro_torch import LearnedSimilarity, TwoTowerConfig
+        from repro_torch.data import products_like_points
+        feats, labels = products_like_points(
+            2000, d=100, classes=47, nnz=16, dup_frac=0.3, seed=SEED,
+            device="cpu")
+        feats = feats.map(lambda x: x.to(device))
+        model = LearnedSimilarity(TwoTowerConfig(in_dim=100))
+        params = {k: v.to(device).requires_grad_(True) for k, v in
+                  model.init(torch.Generator().manual_seed(SEED)).items()}
+        i, j = np.random.RandomState(2).randint(0, 2000, (2, 512))
+        y = (labels.numpy()[i] == labels.numpy()[j]).astype(np.float32)
+        loss = model.loss(params, feats.take(torch.as_tensor(i, device=device)),
+                          feats.take(torch.as_tensor(j, device=device)),
+                          torch.as_tensor(y, device=device))
+        grads = torch.autograd.grad(loss, list(params.values()))
+        out = {"loss": float(loss.detach()),
+               "grads": {k: g.cpu() for k, g in zip(params, grads)}}
+    out["seconds"] = time.perf_counter() - t
+    return out
+
+
+def check_train_parity(torch, name, gpu, cpu) -> None:
+    if name == "train-gemma3-6l":
+        rel = lambda a, b: max(abs(x - y) / abs(y) for x, y in zip(a, b))
+        d_loss = rel(gpu["losses"], cpu["losses"])
+        d_norm = rel(gpu["grad_norms"], cpu["grad_norms"])
+        d_param = max((a - b).abs().max().item()
+                      for a, b in zip(gpu["params"], cpu["params"],
+                                      strict=True))
+        off = [(a - b).abs().gt(TRAIN_PARITY_ATOL).sum().item()
+               for a, b in zip(gpu["params"], cpu["params"])]
+        share = max(n / a.numel() for n, a in zip(off, gpu["params"]))
+        total = sum(a.numel() for a in gpu["params"])
+        emit({"phase": "parity", "config": name,
+              "layers": TRAIN_PARITY_LAYERS, "seq": TRAIN_PARITY_SEQ,
+              "steps": TRAIN_PARITY_STEPS, "losses": [gpu["losses"],
+                                                      cpu["losses"]],
+              "grad_norms": [gpu["grad_norms"], cpu["grad_norms"]],
+              "loss_rel_diff": d_loss, "grad_norm_rel_diff": d_norm,
+              "param_max_abs_diff": d_param,
+              "params_off_by_more_than_1e-5": sum(off),
+              "largest_leaf_share_off": share,
+              "leaf_share_tolerance": TRAIN_PARITY_SHARE,
+              "least_leaf_share_moved": [gpu["least_leaf_share_moved"],
+                                         cpu["least_leaf_share_moved"]],
+              "params": total,
+              "cuda_seconds": gpu["seconds"], "cpu_seconds": cpu["seconds"]})
+        check(d_loss <= TRAIN_PARITY_LOSS_RTOL,
+              f"{name}: losses differ by {d_loss} (relative)")
+        check(d_norm <= TRAIN_PARITY_NORM_RTOL,
+              f"{name}: grad norms differ by {d_norm} (relative)")
+        check(share <= TRAIN_PARITY_SHARE,
+              f"{name}: {share} of a leaf's parameters differ by more than "
+              f"{TRAIN_PARITY_ATOL}")
+        check(min(gpu["least_leaf_share_moved"],
+                  cpu["least_leaf_share_moved"]) > TRAIN_PARITY_SHARE,
+              f"{name}: the steps moved too few parameters for the "
+              "parameter check to see a skipped update")
+        return
+    d_loss = abs(gpu["loss"] - cpu["loss"])
+    d_grad = max((gpu["grads"][k] - g).abs().max().item()
+                 for k, g in cpu["grads"].items())
+    emit({"phase": "parity", "config": name, "loss": [gpu["loss"],
+                                                      cpu["loss"]],
+          "loss_abs_diff": d_loss, "grad_max_abs_diff": d_grad,
+          "tolerance": LEARNED_LOSS_TOL})
+    check(d_loss <= LEARNED_LOSS_TOL and d_grad <= LEARNED_LOSS_TOL,
+          f"{name}: loss differs by {d_loss}, gradients by {d_grad}")
+
+
 def start_parity_worker(torch):
     """Write the parity inputs and start the CPU worker on them; returns
     (inputs, process, its start on the host clock).  The worker is killed if the script exits first,
@@ -2554,7 +3197,8 @@ def start_parity_worker(torch):
             stderr=subprocess.STDOUT, cwd=str(ROOT))
     atexit.register(lambda: proc.poll() is None and proc.kill())
     emit({"phase": "parity_worker", "pid": proc.pid,
-          "threads": PARITY_THREADS, "jobs": len(parity_jobs())})
+          "threads": PARITY_THREADS,
+          "jobs": len(parity_jobs()) + len(train_parity_jobs())})
     return inputs, proc, time.perf_counter()
 
 
@@ -2578,6 +3222,12 @@ def parity_worker() -> int:
             pickle.dump(res, f)
         tmp.rename(PARITY_DIR / f"{name}.cpu.pkl")
         print(f"{name}: {res['seconds']:.1f} s", flush=True)
+    for name in train_parity_jobs():
+        res = train_parity_run(torch, name, "cpu")
+        tmp = PARITY_DIR / f"{name}.cpu.tmp"
+        torch.save(res, tmp)
+        tmp.rename(PARITY_DIR / f"{name}.cpu.pt")
+        print(f"{name}: {res['seconds']:.1f} s", flush=True)
     return 0
 
 
@@ -2596,6 +3246,9 @@ def phase_parity(torch, inputs, worker, started) -> dict:
         if job["cfg"].source_name == "allpairs" and job["data"] == "dense":
             extra[name] = tf32_sweep_check(torch, name, job, inputs,
                                            gpu[name]["graph"])
+        torch.cuda.empty_cache()
+    for name in train_parity_jobs():
+        gpu[name] = train_parity_run(torch, name, "cuda")
         torch.cuda.empty_cache()
     t = time.perf_counter()
     try:
@@ -2616,6 +3269,9 @@ def phase_parity(torch, inputs, worker, started) -> dict:
             extra[name] = check_store_serve_parity(torch, name, job,
                                                    gpu[name], cpu)
         check_parity(torch, name, job, gpu[name], cpu, extra.get(name))
+    for name in train_parity_jobs():
+        check_train_parity(torch, name, gpu[name],
+                           torch.load(PARITY_DIR / f"{name}.cpu.pt"))
     launches = gpu["learned-prefilter"]["launches"]
     r = jobs["learned-prefilter"]["cfg"].r
     check(launches["simhash_packed"] == 1
@@ -2641,6 +3297,12 @@ def phase_parity(torch, inputs, worker, started) -> dict:
 def phase_parity_inline(torch, names) -> None:
     """Development: the named parity jobs with both sides built in this
     process, one after the other, compared as the parity phase does."""
+    for name in [n for n in names if n in train_parity_jobs()]:
+        check_train_parity(torch, name, train_parity_run(torch, name, "cuda"),
+                           train_parity_run(torch, name, "cpu"))
+    names = [n for n in names if n not in train_parity_jobs()]
+    if not names:
+        return
     jobs = parity_jobs()
     inputs = parity_inputs(torch)
     for name in names:
@@ -2662,12 +3324,13 @@ def main() -> int:
     torch.set_float32_matmul_precision("highest")
     smi = phase_device(torch)
     phase_build()
+    parity_inputs_, worker, started = start_parity_worker(torch)
     kernels = []
     for phase in (phase_window_score, phase_topk_merge, phase_leader_score,
-                  phase_simhash, phase_flash_attention):
+                  phase_simhash, phase_flash_attention,
+                  phase_flash_attention_bwd):
         kernels.append(phase(torch))
         torch.cuda.empty_cache()
-    parity_inputs_, worker, started = start_parity_worker(torch)
     x, classes = clustered_points(torch, N_E2E, D_E2E, classes=1000,
                                   spread=0.05, seed=SEED, device="cuda",
                                   with_labels=True)
@@ -2675,7 +3338,7 @@ def main() -> int:
     by_path["e2e"], reference = phase_e2e(torch, x)
     by_path["e2e_paged"] = phase_e2e_paged(torch, x, reference)
     del reference
-    by_path.update({"e2e_lsh": phase_e2e_lsh(torch, x),
+    by_path.update({"e2e_lsh": phase_e2e_lsh(torch, x[:N_LSH]),
                     "e2e_prefilter": phase_e2e_prefilter(torch, x),
                     "e2e_session": phase_e2e_session(torch, x),
                     "e2e_session_delta": phase_e2e_session_delta(torch, x),
@@ -2686,6 +3349,7 @@ def main() -> int:
     by_path.update(phase_e2e_learned(torch))
     by_path.update(phase_e2e_jaccard(torch))
     by_path["lm_embed"] = phase_lm(torch)
+    by_path.update(phase_train(torch))
     by_path.update(phase_parity(torch, parity_inputs_, worker, started))
     for k in kernels:
         k["launches"] = sum(c[k["name"]] for c in by_path.values())

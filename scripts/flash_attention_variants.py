@@ -72,7 +72,7 @@ def build(variants, sass_dir):
                 subprocess.run([cuobjdump, "-sass", str(lib)], stdout=f,
                                stderr=subprocess.STDOUT, check=False)
         fn = ctypes.CDLL(str(lib)).flash_attention_wgmma_launch
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 \
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 \
             + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fns[name] = fn
@@ -83,8 +83,8 @@ def launch(torch, fn, q, k, v, causal, window):
     b, hq, sq, d = q.shape
     _, hkv, sk, _ = k.shape
     out = torch.empty_like(q)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
-             hq, hkv, sq, sk, d, 1.0 / d ** 0.5, int(causal),
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None,
+             b, hq, hkv, sq, sk, d, 1.0 / d ** 0.5, int(causal),
              int(window is not None), window or 0,
              torch.cuda.current_stream().cuda_stream)
     if err:

@@ -14,7 +14,11 @@
 // previous max was -inf; the output is acc / max(l, 1e-30) in q's type.
 // A row with no visible key therefore gives 0, as the Pallas kernel does,
 // where the plain version (ref.mha_ref, a softmax over -inf) gives NaN;
-// the callers' shapes (sq <= sk, causal) have no such row.
+// the callers' shapes (sq <= sk, causal) have no such row.  Given a
+// non-null `lse` (fp32, (b, hq, sq)), the kernel also writes each row's
+// log-sum-exp of the scaled, masked scores, m + log(l) (-inf for a row
+// with no visible key), which flash_attention_bwd.cu reads; with a null
+// pointer nothing else changes.
 //
 // What bounds it on the H100: operations.  At the LM path's shape
 // (b, hq, hkv, s, d) = (64, 4, 1, 2048, 256) in bf16 it moves 0.40 GB
@@ -56,6 +60,7 @@ struct Params {
   const void* k;
   const void* v;
   void* out;
+  float* lse;                           // (b, hq, sq) or null
   int hq, g, sq, sk, d;
   float scale;
   int causal, has_window, window;
@@ -246,6 +251,8 @@ flash_attention_kernel(Params p) {
     const int row = row0 + rg * RPT + i;
     if (row >= p.sq) continue;
     const float inv_den = 1.0f / fmaxf(l[i], 1e-30f);
+    if (p.lse != nullptr && cl == 0)    // m and l agree across the lanes
+      p.lse[q_base + row] = m[i] == -INFINITY ? -INFINITY : m[i] + logf(l[i]);
 #pragma unroll
     for (int c = 0; c < CPT; ++c) {
       const int col = cl + kLanes * c;
@@ -294,16 +301,17 @@ int launch_dp(const Params& p, int b, cudaStream_t stream) {
 extern "C" int flash_attention_max_head_dim() { return 512; }
 
 // Launch on `stream`; `bf16` selects __nv_bfloat16 over float for q, k, v
-// and out.  Returns cudaGetLastError() (0 on success); an unsupported head
-// dim returns cudaErrorInvalidValue.
+// and out; `lse` (fp32 (b, hq, sq)) may be null.  Returns
+// cudaGetLastError() (0 on success); an unsupported head dim returns
+// cudaErrorInvalidValue.
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* out, int b, int hq,
-    int hkv, int sq, int sk, int d, float scale, int causal, int has_window,
-    int window, int bf16, void* stream) {
+    const void* q, const void* k, const void* v, void* out, float* lse,
+    int b, int hq, int hkv, int sq, int sk, int d, float scale, int causal,
+    int has_window, int window, int bf16, void* stream) {
   if (d < 1 || d > 512 || hkv < 1 || hq % hkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (b == 0 || hq == 0 || sq == 0) return 0;
-  Params p{q, k, v, out, hq, hq / hkv, sq, sk, d, scale, causal,
+  Params p{q, k, v, out, lse, hq, hq / hkv, sq, sk, d, scale, causal,
            has_window, window};
   auto s = static_cast<cudaStream_t>(stream);
   return bf16 ? launch_dp<__nv_bfloat16>(p, b, s) : launch_dp<float>(p, b, s);

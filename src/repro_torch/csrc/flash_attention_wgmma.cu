@@ -10,7 +10,11 @@
 // for masked scores; fp32 scores, running max m, normaliser l and output
 // accumulator; p = 0 while the running max is -inf and alpha = 0 after
 // such a max; the output acc / max(l, 1e-30) in bf16.  Query head h reads
-// KV head h / (hq / hkv).
+// KV head h / (hq / hkv).  Given a non-null `lse` (fp32, (b, hq, sq)),
+// the epilogue also writes each row's log-sum-exp of the scaled, masked
+// scores, (m + log2 l) ln 2 in the exp2 units kept here (-inf for a row
+// with no visible key), which flash_attention_bwd.cu reads; with a null
+// pointer nothing else changes.
 //
 // Bound on the H100: operations.  At the LM path's shape (b, hq, hkv, s,
 // d) = (64, 4, 1, 2048, 256) the call moves 0.40 GB (0.12 ms at 3.35
@@ -80,6 +84,7 @@ constexpr int kRow = 128;       // bytes of one swizzled box row
 
 struct Params {
   void* out;
+  float* lse;                   // (b, hq, sq) or null
   int hq, g, sq, sk, nqb;
   float scale_log2;             // scale * log2(e): scores go through exp2
   int causal, has_window, window;
@@ -606,8 +611,17 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 
   // Epilogue: acc / max(l, 1e-30) in bf16, rows past sq dropped.
-  const float inv_a = 1.0f / fmaxf(quad_sum(l_a), 1e-30f);
-  const float inv_b = 1.0f / fmaxf(quad_sum(l_b), 1e-30f);
+  const float lq_a = quad_sum(l_a), lq_b = quad_sum(l_b);
+  const float inv_a = 1.0f / fmaxf(lq_a, 1e-30f);
+  const float inv_b = 1.0f / fmaxf(lq_b, 1e-30f);
+  if (p.lse != nullptr && lane % 4 == 0) {   // m and l agree in a quad
+    constexpr float kLn2 = 0.693147180559945309f;
+    float* lse = p.lse + static_cast<size_t>(bh_q) * p.sq;
+    if (row_a < p.sq)
+      lse[row_a] = m_a == -INFINITY ? -INFINITY : (m_a + log2f(lq_a)) * kLn2;
+    if (row_b < p.sq)
+      lse[row_b] = m_b == -INFINITY ? -INFINITY : (m_b + log2f(lq_b)) * kLn2;
+  }
   __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out)
                        + static_cast<size_t>(bh_q) * p.sq * D;
   if (row_a < p.sq) {
@@ -670,10 +684,16 @@ bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int d,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+__global__ void fill_kernel(float* x, size_t n, float value) {
+  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
+       i < n; i += static_cast<size_t>(gridDim.x) * blockDim.x)
+    x[i] = value;
+}
+
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* out, int b,
-           int hq, int hkv, int sq, int sk, float scale, int causal,
-           int has_window, int window, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int b, int hq, int hkv, int sq, int sk, float scale,
+           int causal, int has_window, int window, cudaStream_t stream) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap tm_q, tm_k, tm_v;
@@ -687,7 +707,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int nqb = (sq + kBM - 1) / kBM;
-  const Params p{out, hq, hq / hkv, sq, sk, nqb,
+  const Params p{out, lse, hq, hq / hkv, sq, sk, nqb,
                  scale * 1.44269504088896341f, causal, has_window, window};
   kernel<<<b * hq * nqb, kThreads, smem, stream>>>(tm_q, tm_k, tm_v, p);
   return static_cast<int>(cudaGetLastError());
@@ -696,13 +716,14 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
 }  // namespace
 
 // Launch on `stream`: q (b, hq, sq, d), k and v (b, hkv, sk, d), all
-// contiguous bf16 with 16-byte aligned data, d in {64, 128, 256}.
-// Returns cudaGetLastError() (0 on success); other head dims or a
-// misaligned pointer return an error without launching.
+// contiguous bf16 with 16-byte aligned data, d in {64, 128, 256}; `lse`
+// (fp32 (b, hq, sq)) may be null.  Returns cudaGetLastError() (0 on
+// success); other head dims or a misaligned pointer return an error
+// without launching.
 extern "C" int flash_attention_wgmma_launch(
-    const void* q, const void* k, const void* v, void* out, int b, int hq,
-    int hkv, int sq, int sk, int d, float scale, int causal, int has_window,
-    int window, void* stream) {
+    const void* q, const void* k, const void* v, void* out, float* lse,
+    int b, int hq, int hkv, int sq, int sk, int d, float scale, int causal,
+    int has_window, int window, void* stream) {
   if (hkv < 1 || hq % hkv != 0 || (d != 64 && d != 128 && d != 256))
     return static_cast<int>(cudaErrorInvalidValue);
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k)
@@ -711,15 +732,22 @@ extern "C" int flash_attention_wgmma_launch(
     return static_cast<int>(cudaErrorMisalignedAddress);
   auto s = static_cast<cudaStream_t>(stream);
   if (b == 0 || hq == 0 || sq == 0) return 0;
-  if (sk == 0)                          // no key: every row gives 0
+  if (sk == 0) {                        // no key: every row gives 0
+    if (lse != nullptr) {
+      fill_kernel<<<64, 256, 0, s>>>(lse, static_cast<size_t>(b) * hq * sq,
+                                     -INFINITY);
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
     return static_cast<int>(cudaMemsetAsync(
         out, 0, static_cast<size_t>(b) * hq * sq * d * 2, s));
+  }
   if (d == 64)
-    return launch<64>(q, k, v, out, b, hq, hkv, sq, sk, scale, causal,
+    return launch<64>(q, k, v, out, lse, b, hq, hkv, sq, sk, scale, causal,
                       has_window, window, s);
   if (d == 128)
-    return launch<128>(q, k, v, out, b, hq, hkv, sq, sk, scale, causal,
-                       has_window, window, s);
-  return launch<256>(q, k, v, out, b, hq, hkv, sq, sk, scale, causal,
+    return launch<128>(q, k, v, out, lse, b, hq, hkv, sq, sk, scale,
+                       causal, has_window, window, s);
+  return launch<256>(q, k, v, out, lse, b, hq, hkv, sq, sk, scale, causal,
                      has_window, window, s);
 }

@@ -1,16 +1,21 @@
-"""Synthetic stand-ins for two of the paper's datasets
-(``repro.data.synthetic``).
+"""Synthetic stand-ins for the paper's datasets (``repro.data.synthetic``).
 
+  * ``gaussian_mixture_points``: the Random1B/10B generator (Appendix
+    D.1): mode i has mean e_(i mod d) and per-coordinate std 0.1;
+  * ``mnist_like_points``: well-separated classes around unit centres;
   * ``products_like_points``: the Amazon2m analogue, a dense embedding and
     a padded "co-purchase" set biased to the point's class;
   * ``wikipedia_like_sets``: weighted word sets (Zipf-ish weights) with
-    topical classes.
+    topical classes;
+  * ``token_stream_batch``: deterministic, seekable LM token batches,
+    batch t a pure function of (seed, t), so a restarted training run
+    resumes the stream exactly.
 
-Both draw through :mod:`repro_torch.prng` with the JAX package's keys, so
-the integer fields (set ids, labels, the near-duplicate choices) equal
-JAX's bit for bit and the floats agree to a few ulp (the normal draw is
-not bitwise: ``prng.normal``).  They run on the card unless the caller
-asks for the CPU.
+All draw through :mod:`repro_torch.prng` with the JAX package's keys, so
+the integer fields (set ids, labels, the near-duplicate choices, tokens)
+equal JAX's bit for bit and the floats agree to a few ulp (the normal
+draw is not bitwise: ``prng.normal``).  They run on the card unless the
+caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -42,6 +47,38 @@ def _dup_sets(key: prng.Key, idx: torch.Tensor, n: int, dup_frac: float,
     idx = torch.where(is_dup[:, None],
                       torch.where(keep_el, idx[src_pt], idx), idx)
     return is_dup, src_pt, idx
+
+
+def gaussian_mixture_points(n: int, *, d: int = 100, modes: int = 100,
+                            std: float = 0.1, seed: int = 0,
+                            device: DeviceLike = None
+                            ) -> Tuple[PointFeatures, torch.Tensor]:
+    """Appendix D.1's Random1B/10B generator, scaled to n points: N(0,
+    std^2) noise plus 1 at coordinate (mode mod d).  Returns the features
+    and the (n,) int32 modes."""
+    dev = resolve_device(device)
+    km, kx = prng.split(prng.key(seed))
+    mode = prng.randint(km, (n,), 0, modes, device=dev).long()
+    x = prng.normal(kx, (n, d), device=dev) * std
+    x[torch.arange(n, device=dev), mode % d] += 1.0
+    return PointFeatures(dense=x), mode.to(torch.int32)
+
+
+def mnist_like_points(n: int = 20_000, *, d: int = 64, classes: int = 10,
+                      spread: float = 0.15, seed: int = 0,
+                      device: DeviceLike = None
+                      ) -> Tuple[PointFeatures, torch.Tensor]:
+    """Clustered dense points with cosine-separable classes: a unit
+    centre per class plus ``spread`` times N(0, 1) noise.  Returns the
+    features and the (n,) int32 labels."""
+    dev = resolve_device(device)
+    kc, km, kx = prng.split(prng.key(seed), 3)
+    centers = prng.normal(kc, (classes, d), device=dev)
+    centers = centers / torch.linalg.vector_norm(centers, dim=-1,
+                                                 keepdim=True)
+    label = prng.randint(km, (n,), 0, classes, device=dev).long()
+    x = centers[label] + spread * prng.normal(kx, (n, d), device=dev)
+    return PointFeatures(dense=x), label.to(torch.int32)
 
 
 def products_like_points(n: int = 20_000, *, d: int = 100, classes: int = 47,
@@ -120,3 +157,24 @@ def wikipedia_like_sets(n: int = 20_000, *, classes: int = 20, nnz: int = 32,
         set_idx=idx.contiguous(), set_w=w.to(torch.float32).contiguous(),
         set_mask=torch.ones((n, nnz), dtype=torch.bool, device=dev))
     return feats, label.to(torch.int32)
+
+
+def token_stream_batch(step: int, *, batch: int, seq_len: int, vocab: int,
+                       seed: int = 0, device: DeviceLike = None
+                       ) -> torch.Tensor:
+    """Deterministic seekable token batch (batch, seq_len) int32, a pure
+    function of (seed, step), bit-equal to the JAX package's.
+
+    Tokens follow a mixed bigram process so that an LM's loss decreases:
+    with probability 0.85 token t is (token[t-1] * 31 + 7) mod vocab,
+    else a uniform draw.  The recurrence runs as a loop over the
+    sequence in int32, wrapping as XLA's scan does."""
+    dev = resolve_device(device)
+    k0, k1, _ = prng.split(prng.fold_in(prng.key(seed), step), 3)
+    base = prng.randint(k0, (batch, seq_len), 0, vocab, device=dev)
+    coin = _below(prng.uniform(k1, (batch, seq_len), device=dev), 0.85)
+    out = base.clone()
+    for t in range(1, seq_len):
+        out[:, t] = torch.where(coin[:, t], (out[:, t - 1] * 31 + 7) % vocab,
+                                base[:, t])
+    return out

@@ -63,6 +63,14 @@ def topk_merge(slab_nbr, slab_w, inc_nbr, inc_w):
 def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
               scale: Optional[float] = None):
     """GQA attention with causal / sliding-window masks; see
-    ``ref.mha_ref``."""
-    fn = _fa.flash_attention if _on_cuda(q) else ref.mha_ref
-    return fn(q, k, v, causal=causal, window=window, scale=scale)
+    ``ref.mha_ref``.  On CUDA every call goes through the
+    ``FlashAttention`` Function (the forward kernel, and the backward
+    kernel when a gradient is wanted); on the CPU autograd runs through
+    ``ref.mha_ref``, as the JAX package differentiates it."""
+    if not _on_cuda(q):
+        return ref.mha_ref(q, k, v, causal=causal, window=window,
+                           scale=scale)
+    with_grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    return _fa.FlashAttention.apply(q, k, v, causal, window, scale,
+                                    with_grad)

@@ -146,32 +146,103 @@ def topk_merge_ref(slab_nbr: torch.Tensor, slab_w: torch.Tensor,
     return out_nbr.to(torch.int32), out_w
 
 
+def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """fp32 for the kernels' types; float64 stays float64 (gradcheck)."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def _visible(sq: int, sk: int, causal: bool, window: Optional[int],
+             device) -> torch.Tensor:
+    """(sq, sk) bool: key j visible to query row i, on right-aligned
+    positions (row i sits at key position sk - sq + i)."""
+    qpos = torch.arange(sq, device=device)[:, None] + (sk - sq)
+    kpos = torch.arange(sk, device=device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    return mask
+
+
+def _expanded(q, k, v, scale):
+    """q, and k and v repeated to q's heads, in the accumulation type;
+    the default scale."""
+    g = q.shape[1] // k.shape[1]
+    acc = _acc_dtype(q.dtype)
+    scale = scale if scale is not None else 1.0 / (q.shape[3] ** 0.5)
+    return (q.to(acc), k.to(acc).repeat_interleave(g, dim=1),
+            v.to(acc).repeat_interleave(g, dim=1), scale)
+
+
+def _masked_scores(q, k, v, causal, window, scale):
+    """The scaled scores, -inf where the masks hide a key, and v repeated
+    to q's heads, in the accumulation type."""
+    qf, kf, vf, scale = _expanded(q, k, v, scale)
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+    mask = _visible(q.shape[2], kf.shape[2], causal, window, q.device)
+    return torch.where(mask, s, torch.full_like(s, float("-inf"))), vf
+
+
+def _attend(s, vf, dtype):
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(dtype)
+
+
 def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             causal: bool = True, window: Optional[int] = None,
             scale: Optional[float] = None) -> torch.Tensor:
     """Grouped-query attention.
 
     q: (b, hq, sq, d); k, v: (b, hkv, sk, d); hq % hkv == 0.  Scores are
-    fp32 over KV heads repeated to hq; positions are right-aligned (query
-    row i sits at key position sk - sq + i); window=w keeps key j for
-    query i iff i - w < j.  Returns (b, hq, sq, d) in q's dtype.
+    fp32 (float64 for float64 inputs) over KV heads repeated to hq;
+    positions are right-aligned (query row i sits at key position
+    sk - sq + i); window=w keeps key j for query i iff i - w < j.
+    Returns (b, hq, sq, d) in q's dtype.
     """
-    sq, d = q.shape[2], q.shape[3]
-    g = q.shape[1] // k.shape[1]
-    scale = scale if scale is not None else 1.0 / (d ** 0.5)
-    qf = q.to(torch.float32)
-    kf = k.to(torch.float32).repeat_interleave(g, dim=1)
-    vf = v.to(torch.float32).repeat_interleave(g, dim=1)
+    s, vf = _masked_scores(q, k, v, causal, window, scale)
+    return _attend(s, vf, q.dtype)
+
+
+def mha_lse_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                causal: bool = True, window: Optional[int] = None,
+                scale: Optional[float] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`mha_ref`'s output and the (b, hq, sq) log-sum-exp of each
+    row's scaled, masked scores (fp32; -inf for a row that sees no key),
+    which the backward needs."""
+    s, vf = _masked_scores(q, k, v, causal, window, scale)
+    return _attend(s, vf, q.dtype), torch.logsumexp(s, dim=-1)
+
+
+def mha_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor, *,
+                causal: bool = True, window: Optional[int] = None,
+                scale: Optional[float] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of :func:`mha_ref` from the forward's saved output
+    ``o`` and log-sum-exp ``lse``, as the backward kernel computes it.
+
+    P = exp(S * scale - lse) on visible pairs (0 elsewhere),
+    delta = rowsum(do * o), dS = P * (do V^T - delta); then dq = dS K
+    * scale, and dk = dS^T Q * scale and dv = P^T do, each summed over
+    the query heads of its KV head's group.  Accumulates in fp32
+    (float64 for float64 inputs); returns dq, dk, dv in q's dtype.
+    """
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    qf, kf, vf, scale = _expanded(q, k, v, scale)
+    acc = qf.dtype
+    of, dof = o.to(acc), do.to(acc)
     s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
-    sk = kf.shape[2]
-    qpos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
-    kpos = torch.arange(sk, device=q.device)[None, :]
-    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kpos <= qpos
-    if window is not None:
-        mask &= kpos > qpos - window
-    s = torch.where(mask, s, torch.full_like(s, float("-inf")))
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhqk,bhkd->bhqd", p, vf)
-    return o.to(q.dtype)
+    mask = _visible(sq, sk, causal, window, q.device)
+    p = torch.where(mask, torch.exp(s - lse.to(acc)[..., None]),
+                    torch.zeros_like(s))
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+    delta = (dof * of).sum(-1, keepdim=True)
+    ds = p * (dp - delta)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    group = lambda t: t.reshape(b, hkv, hq // hkv, sk, d).sum(2)
+    return dq.to(q.dtype), group(dk).to(q.dtype), group(dv).to(q.dtype)

@@ -8,6 +8,11 @@ the same weights with ``layers`` a list of per-layer dicts in execution
 order (``models/stack.py``).  Weights stay (in, out) in both, so
 ``x @ w`` is the same product.  Arrays cross as numpy arrays, such as
 ``jax.tree.map(np.asarray, params)`` gives; bf16 crosses bit for bit.
+
+``train_state_from_jax`` / ``train_state_to_jax`` carry a whole training
+state (parameters, AdamW moments and step, the compression error state,
+the step) the same way, each parameter-shaped tree through the
+parameters' mapping.
 """
 
 from __future__ import annotations
@@ -85,3 +90,42 @@ def params_to_jax(params: Dict[str, Any], cfg: ModelConfig
             name: np.stack([np.stack([cell[name] for cell in row])
                             for row in grid]) for name in names}
     return values
+
+
+def _field(values, name: str):
+    """A field of a JAX ``TrainState`` (or of a dict with its fields)."""
+    return values[name] if isinstance(values, dict) else getattr(values, name)
+
+
+def train_state_from_jax(values, cfg: ModelConfig, *,
+                         device: DeviceLike = None):
+    """The port's ``TrainState``, on ``device``, from a JAX ``TrainState``
+    whose leaves are numpy arrays (``jax.tree.map(np.asarray, state)``)
+    or a dict of its four fields."""
+    from repro_torch.train.train_step import TrainState
+    dev = resolve_device(device)
+    tree = lambda t: None if t is None else params_from_jax(t, cfg,
+                                                            device=dev)
+    scalar = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.int32,
+                                       device=dev)
+    opt = _field(values, "opt_state")
+    return TrainState(
+        params=tree(_field(values, "params")),
+        opt_state={"m": tree(opt["m"]), "v": tree(opt["v"]),
+                   "step": scalar(opt["step"])},
+        error_state=tree(_field(values, "error_state")),
+        step=scalar(_field(values, "step")))
+
+
+def train_state_to_jax(state, cfg: ModelConfig) -> Dict[str, Any]:
+    """The fields of a JAX ``TrainState`` as numpy trees, from the port's
+    ``TrainState``: the inverse of ``train_state_from_jax``
+    (``TrainState(**jax.tree.map(jnp.asarray, out))`` rebuilds it)."""
+    tree = lambda t: None if t is None else params_to_jax(t, cfg)
+    scalar = lambda t: np.asarray(_to_numpy(t), dtype=np.int32)
+    opt = state.opt_state
+    return {"params": tree(state.params),
+            "opt_state": {"m": tree(opt["m"]), "v": tree(opt["v"]),
+                          "step": scalar(opt["step"])},
+            "error_state": tree(state.error_state),
+            "step": scalar(state.step)}

@@ -15,11 +15,14 @@ per-layer dicts in execution order (group, outer repeat, sub-block,
 inner repeat); ``layer_defs`` gives the matching ``BlockDef`` of each
 layer and ``models/convert.py`` maps between the two layouts.
 
+``cfg.remat`` (``jax.checkpoint`` around each block in the JAX package)
+wraps each block in ``torch.utils.checkpoint`` when grad mode is on, so
+that training keeps one block's activations at a time and recomputes the
+rest in the backward; with grad mode off (serving) nothing changes.
+
 Not ported, with the reason:
   * ``constrain`` (``distributed/activation_sharding.py``) pins
     activation shardings on a mesh; on one device it is the identity.
-  * ``jax.checkpoint`` (``cfg.remat``) only changes what a backward pass
-    recomputes; serving runs no backward.
   * Block flavours other than ``dense`` (MoE, MLA, Mamba, RWKV, cross
     attention, the encoder) raise ``NotImplementedError`` until their
     slice.
@@ -31,6 +34,7 @@ import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn_lib
@@ -115,6 +119,14 @@ def layer_defs(plan: List[Group]) -> List[BlockDef]:
             for ri, bd in subs for _ in range(ri)]
 
 
+def layer_stacks(cfg: ModelConfig) -> List[Tuple[int, int]]:
+    """The (group, sub-block) of each layer, in execution order: the
+    JAX package's stacked array ``g{group}/s{sub-block}`` that holds it."""
+    return [(gi, si) for gi, (ro, subs) in enumerate(layer_plan(cfg))
+            for _ in range(ro) for si, (ri, _) in enumerate(subs)
+            for _ in range(ri)]
+
+
 def _check_ported(cfg: ModelConfig) -> None:
     if cfg.encoder_layers:
         raise NotImplementedError(
@@ -197,9 +209,16 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
 def _run_stack(plan: List[Group], cfg: ModelConfig,
                layers: List[Dict[str, torch.Tensor]], x: torch.Tensor,
                ctx: Dict[str, Any]) -> torch.Tensor:
-    """Apply the plan's layers in order to x: (B, S, d)."""
+    """Apply the plan's layers in order to x: (B, S, d); each block
+    rematerialised in the backward when ``cfg.remat`` and grad mode is
+    on."""
+    remat = cfg.remat and torch.is_grad_enabled()
     for bd, p in zip(layer_defs(plan), layers, strict=True):
-        x = _apply_block(bd, cfg, p, x, ctx)
+        if remat:
+            x = checkpoint(_apply_block, bd, cfg, p, x, ctx,
+                           use_reentrant=False)
+        else:
+            x = _apply_block(bd, cfg, p, x, ctx)
     return x
 
 

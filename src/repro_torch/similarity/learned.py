@@ -13,8 +13,10 @@ paper's Appendix C.2 / D.3, after Grale).
 The model is symmetric by construction.  Parameters are a dict of float32
 tensors under the JAX package's names (``tower_w0`` ... ``head_b2``);
 ``core.convert.learned_params_from_reference`` carries the JAX arrays
-across.  Every matmul runs in IEEE fp32.  Training (``loss``) comes with
-the training slice of the port.
+across.  Every matmul runs in IEEE fp32.  ``loss`` is the training
+objective (``examples/train_embedder.py`` trains it with plain SGD):
+sigmoid binary cross-entropy on aligned pairs, same-category pairs the
+positives.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import dataclasses
 from typing import Any, Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.similarity.measures import (PointFeatures, cosine_pairwise,
                                              ieee_fp32_matmul, set_jaccard)
@@ -141,3 +144,14 @@ class LearnedSimilarity:
         emb_b = self.embed(params, fb.dense)
         pair_feats = self.pair_feats_from(fa, fb, emb_a, emb_b)
         return self.pair_score_from_embed(params, emb_a, emb_b, pair_feats)
+
+    def loss(self, params: Params, fa: PointFeatures, fb: PointFeatures,
+             labels: torch.Tensor) -> torch.Tensor:
+        """Sigmoid BCE on aligned pairs: fa[i] against fb[i], labels (n,)
+        (1 for a positive pair).  Each pair is scored as a 1 x 1 block of
+        ``pairwise``, through the same IEEE fp32 products."""
+        logits = self.pairwise(params, fa.map(lambda t: t[:, None]),
+                               fb.map(lambda t: t[:, None]))[:, 0, 0]
+        labels = labels.to(logits.dtype)
+        return -torch.mean(labels * F.logsigmoid(logits)
+                           + (1.0 - labels) * F.logsigmoid(-logits))
