@@ -22,9 +22,13 @@ Phases, one JSON line each; any failed check exits non-zero:
               counted, and merged by its in-launch sort).
               flash_attention's row log-sum-exp (both designs) against
               mha_lse_ref's; flash_attention_bwd (the gradient, with no
-              TPU counterpart) in fp32 and bf16 against mha_bwd_ref and
+              TPU counterpart; two designs: TF32 tensor cores with split
+              operands for head dims 64, 128 and 256, fp32 FMA
+              otherwise) in fp32 and bf16 against mha_bwd_ref and
               autograd through mha_ref, then at the training path's
-              shape beside SDPA's backward and the bound.
+              shape beside the FMA design, SDPA's backward, the plain
+              version and both bounds (split TF32 and fp32 FMA), with
+              SDPA's fp32 forward beside the path's forward.
   4. e2e:     GraphBuilder(x, StarsConfig()).add_reps().finalize() at
               n = 2**20, d = 128 (clustered points made on the card from a
               seeded torch.Generator), with the kernels' launch counts over
@@ -86,11 +90,13 @@ Phases, one JSON line each; any failed check exits non-zero:
      train_lm: launch/train.py::train_loop on gemma3-1b at full width
               and depth, fp32, remat, 4 steps of 2 x 2,048 tokens: s / step,
               tokens / s, losses, grad norms, peak memory, the attention
-              kernels' launches (forward and backward), a gradient in
+              kernels' launches (forward and backward, by design: all 104
+              backward launches on the tensor-core design), a gradient in
               every layer's attn_wq / wk / wv.
      train_resume: examples/train_lm.py's 100m preset, 6 steps with a
               checkpoint every 3, and a fresh loop resumed at 3: the
-              same state bit for bit.
+              same state bit for bit (the backward on the tensor-core
+              design, head dim 64).
      train_learned: the two-tower model trained with the example's SGD
               on LSH candidate pairs of the n = 2**20 Amazon2m-like points
               (2,048 steps of 256 pairs), then a learned build with the
@@ -117,9 +123,12 @@ Phases, one JSON line each; any failed check exits non-zero:
               page counters CUDA == CPU; a serve session with deltas on
               (replayed against the live slabs), queries and both
               clusterings (the card's programs on the CPU's slabs give
-              the CPU's labels).  Then two training jobs: 2 AdamW steps of
-              gemma3-1b at full width with 6 layers (seq 1,024), and a
-              LearnedSimilarity.loss gradient.  The CPU builds run in a
+              the CPU's labels).  Then three training jobs: 2 AdamW steps
+              of gemma3-1b at full width with 6 layers (seq 1,024); 2
+              steps of the 100m preset in bf16 (4 x 256 tokens in 2
+              microbatches, int8 error-feedback compression: the bf16
+              forward and backward kernels); and a LearnedSimilarity.loss
+              gradient.  The CPU builds run in a
               worker process (``chip_smoke.py --parity-worker``, no card
               visible) that starts after phase 2, so they overlap the
               card's phases.
@@ -910,10 +919,14 @@ def phase_flash_attention(torch) -> dict:
 
 
 # The backward's sweep: (b, hq, hkv, sq, sk, d), causal, window.  Head
-# dims 64, 128 and 256 (and 16 and 100, the FMA forward in bf16), GQA
-# groups of 1, 2, 4 and 8, causal, window 512 and non-causal (with and
-# without a window), sq == sk and sq < sk (right-aligned), lengths that
-# are not a multiple of the kernel's 32-row tiles
+# dims 64, 128 and 256 (the tensor-core design) and 16 and 100 (the FMA
+# design), GQA groups of 1, 2, 3, 4 and 8 (8 at head dim 256; 3 is the
+# 100m preset's, at its shape), causal,
+# window 512 and non-causal (with and without a window), sq == sk and
+# sq < sk (right-aligned), lengths that are not a multiple of either
+# design's tiles (32 rows and 32 keys; 32 rows and 64 keys), windows
+# smaller than a tile (8 and 24), a single query row, and a query block
+# shorter than a tile beside a key block just past one
 FLASH_BWD_SWEEP = [((1, 1, 1, 77, 77, 64), True, None),
                    ((2, 4, 1, 130, 130, 128), True, None),
                    ((1, 8, 1, 100, 300, 256), True, None),
@@ -924,7 +937,12 @@ FLASH_BWD_SWEEP = [((1, 1, 1, 77, 77, 64), True, None),
                    ((1, 4, 1, 70, 200, 256), False, None),
                    ((1, 8, 1, 33, 97, 128), False, 40),
                    ((1, 2, 1, 40, 40, 16), True, None),
-                   ((1, 3, 3, 50, 50, 100), True, 20)]
+                   ((1, 3, 3, 50, 50, 100), True, 20),
+                   ((1, 4, 1, 200, 200, 64), True, 8),
+                   ((1, 8, 1, 160, 224, 256), True, 24),
+                   ((2, 2, 1, 31, 65, 128), True, None),
+                   ((1, 2, 2, 1, 70, 64), True, None),
+                   ((2, 12, 4, 256, 256, 64), True, None)]
 # Largest difference over the largest gradient (at least 1): against
 # ref.mha_bwd_ref on the same o and lse, fp32 sums in another order, bf16
 # outputs rounded once; against autograd through ref.mha_ref, which
@@ -935,6 +953,7 @@ FLASH_BWD_AUTOGRAD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 # dim 256), a batch of 2 sequences of 2,048 tokens, global and local
 # (window 512) layers
 FLASH_BWD_PATH = (2, 4, 1, 2048, 2048, 256)
+TF32_FLOP_PER_S = 495e12        # H100 SXM TF32 dense on the tensor cores
 
 
 def rel_err(got, want) -> float:
@@ -947,7 +966,9 @@ def check_flash_bwd(torch, args, causal, window) -> dict:
     ref.mha_bwd_ref (on the forward kernel's own o and lse) and against
     autograd through ref.mha_ref, which reads neither; the forward's o
     and lse first (check_flash); the FlashAttention Function's gradients
-    equal the kernel's.  Returns the largest differences."""
+    equal the kernel's.  Returns the largest differences and the design
+    that ran (read from the wrapper's launch counts, which must agree
+    with its dispatch)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, ref
     q, k, v, do = args
@@ -957,8 +978,10 @@ def check_flash_bwd(torch, args, causal, window) -> dict:
     fwd_err, _ = check_flash(torch, (q, k, v), causal, window)
     o, lse = fa.flash_attention(q, k, v, causal=causal, window=window,
                                 return_lse=True)
+    before = dict(fa.bwd_design_launches)
     got = fa.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
                                  window=window)
+    ran = [d for d, n in fa.bwd_design_launches.items() if n != before[d]]
     want = ref.mha_bwd_ref(q, k, v, o, do, lse, causal=causal,
                            window=window)
     leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
@@ -969,6 +992,8 @@ def check_flash_bwd(torch, args, causal, window) -> dict:
         ops.attention(*fn_leaves, causal=causal, window=window), fn_leaves,
         do)
     torch.cuda.synchronize()
+    design = fa._bwd_design(dtype, q.shape[-1])
+    check(ran == [design], f"{what}: launched {ran}, dispatch says {design}")
     name = str(dtype).split(".")[-1]
     errs = [max(rel_err(a, b) for a, b in zip(got, w)) for w in (want, auto)]
     for g, w in zip(got, want):
@@ -982,8 +1007,8 @@ def check_flash_bwd(torch, args, causal, window) -> dict:
     check(all(torch.equal(a, b) for a, b in zip(got, via_fn)),
           f"{what}: the FlashAttention Function's gradients are not the "
           "kernel's")
-    return {"forward_max_abs_err": fwd_err, "rel_err_vs_plain": errs[0],
-            "rel_err_vs_autograd": errs[1],
+    return {"design": design, "forward_max_abs_err": fwd_err,
+            "rel_err_vs_plain": errs[0], "rel_err_vs_autograd": errs[1],
             "max_abs_err": max((a.float() - w.float()).abs().max().item()
                                for a, w in zip(got, want))}
 
@@ -994,20 +1019,38 @@ def flash_bwd_inputs(torch, gen, shape, dtype):
                                 device="cuda").to(dtype)
 
 
-def phase_flash_attention_bwd(torch) -> dict:
+def sdpa(torch, q, k, v, window, **kw):
+    """F.scaled_dot_product_attention with ref.mha_ref's masks (causal;
+    a boolean band for a window), q of as many rows as k."""
     import torch.nn.functional as F
+    if window is None:
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              enable_gqa=True, **kw)
+    pos = torch.arange(q.shape[2], device=q.device)
+    band = (pos[None, :] <= pos[:, None]) \
+        & (pos[None, :] > pos[:, None] - window)
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=band,
+                                          enable_gqa=True, **kw)
+
+
+def phase_flash_attention_bwd(torch) -> dict:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
     for dtype in (torch.float32, torch.bfloat16):
-        errs = [check_flash_bwd(
-            torch, flash_bwd_inputs(torch, gen, shape, dtype), causal,
-            window) for shape, causal, window in FLASH_BWD_SWEEP]
-        emit({"phase": "kernels", "kernel": "flash_attention_bwd",
-              "dtype": str(dtype), "cases": len(errs),
-              **{f"max_{key}": max(e[key] for e in errs)
-                 for key in ("rel_err_vs_plain", "rel_err_vs_autograd",
-                             "forward_max_abs_err")}})
+        by_design = {}
+        for shape, causal, window in FLASH_BWD_SWEEP:
+            e = check_flash_bwd(torch, flash_bwd_inputs(
+                torch, gen, shape, dtype), causal, window)
+            by_design.setdefault(e["design"], []).append(e)
+        check(set(by_design) == {"mma", "fma"},
+              f"flash_attention_bwd {dtype}: the sweep ran {set(by_design)}")
+        for design, errs in sorted(by_design.items()):
+            emit({"phase": "kernels", "kernel": "flash_attention_bwd",
+                  "dtype": str(dtype), "design": design, "cases": len(errs),
+                  **{f"max_{key}": max(e[key] for e in errs)
+                     for key in ("rel_err_vs_plain", "rel_err_vs_autograd",
+                                 "forward_max_abs_err")}})
     b, hq, hkv, sq, sk, d = FLASH_BWD_PATH
     q, k, v, do = flash_bwd_inputs(torch, gen, FLASH_BWD_PATH, torch.float32)
     check(fa._design(q.dtype, d) == "fma",
@@ -1018,53 +1061,84 @@ def phase_flash_attention_bwd(torch) -> dict:
         # the forward's o and lse, and the gradients against autograd,
         # at the path's own shape
         errs = check_flash_bwd(torch, (q, k, v, do), True, window)
+        check(errs["design"] == "mma", f"flash_attention_bwd {label}: the "
+              f"path's call ran the {errs['design']} design")
         torch.cuda.empty_cache()
         o, lse = fa.flash_attention(q, k, v, causal=True, window=window,
                                     return_lse=True)
         args = (q, k, v, o, do, lse)
         kw = dict(causal=True, window=window)
-        ms = cuda_ms(torch, lambda: fa.flash_attention_bwd(*args, **kw), 10)
+        scale = 1.0 / d ** 0.5
+        # the FMA design on the same inputs, beside the tensor-core one
+        fma = fa._launch_bwd("fma", *args, True, window, scale)
+        want = ref.mha_bwd_ref(*args, **kw)
+        fma_err = max(rel_err(a, w) for a, w in zip(fma, want))
+        check(fma_err <= FLASH_BWD_TOL["float32"],
+              f"flash_attention_bwd {label}: the fma design differs by "
+              f"{fma_err}")
+        del fma, want
+        # alternating rounds: tensor-core design, FMA design, FMA, mma
+        mma_ms, fma_ms = [], []
+        for run in ("mma", "fma", "fma", "mma"):
+            if run == "mma":
+                mma_ms.append(cuda_ms(torch, lambda: fa.flash_attention_bwd(
+                    *args, **kw), 10))
+            else:
+                fma_ms.append(cuda_ms(torch, lambda: fa._launch_bwd(
+                    "fma", *args, True, window, scale), 3))
         plain_ms = cuda_ms(torch, lambda: ref.mha_bwd_ref(*args, **kw), 2)
-        # the training path's forward: the FMA design with the lse
+        # the training path's forward: the FMA design with the lse, and
+        # SDPA's fp32 forward on the same inputs
         fwd_ms = cuda_ms(torch, lambda: fa.flash_attention(
             q, k, v, return_lse=True, **kw), 10)
+        fwd_library_ms = cuda_ms(torch, lambda: sdpa(torch, q, k, v, window),
+                                 10)
         leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
-        if window is None:
-            out = F.scaled_dot_product_attention(*leaves, is_causal=True,
-                                                 enable_gqa=True)
-        else:
-            pos = torch.arange(sq, device="cuda")
-            band = (pos[None, :] <= pos[:, None]) \
-                & (pos[None, :] > pos[:, None] - window)
-            out = F.scaled_dot_product_attention(*leaves, attn_mask=band,
-                                                 enable_gqa=True)
+        out = sdpa(torch, *leaves, window)
         library_ms = cuda_ms(torch, lambda: torch.autograd.grad(
             out, leaves, do, retain_graph=True), 5)
         del out, leaves
         pairs = visible_pairs(sq, sk, True, window)
         moved = nbytes(q, k, v, o, do, lse) + nbytes(q, k, v)
         flops = 10.0 * d * pairs * b * hq        # five products
+        # the tensor-core design's own bound: three TF32 terms a product
+        split = bound(moved, 3 * flops, TF32_FLOP_PER_S)
+        ms = min(mma_ms)
         row = {"at": label, "shape": list(FLASH_BWD_PATH), "window": window,
-               "dtype": "float32", "max_abs_err": errs["max_abs_err"],
+               "dtype": "float32", "design": errs["design"],
+               "max_abs_err": errs["max_abs_err"],
                "max_rel_err": errs["rel_err_vs_plain"],
                "max_rel_err_vs_autograd": errs["rel_err_vs_autograd"],
-               "forward_max_abs_err": errs["forward_max_abs_err"], "ms": ms,
+               "forward_max_abs_err": errs["forward_max_abs_err"],
+               "ms": ms, "ms_rounds": mma_ms, "fma_design_ms": min(fma_ms),
+               "fma_design_ms_rounds": fma_ms,
+               "fma_design_max_rel_err": fma_err,
                "plain_ms": plain_ms, "library_ms": library_ms,
-               "forward_fma_ms": fwd_ms,
                "library": "backward of torch.nn.functional."
                           "scaled_dot_product_attention",
+               "forward_fma_ms": fwd_ms,
+               "forward_library_ms": fwd_library_ms,
+               "forward_library": "torch.nn.functional."
+                                  "scaled_dot_product_attention, fp32",
                "visible_pairs_per_head": pairs,
                "contract_tflop_per_s": flops / ms / 1e9,
-               **bound(moved, flops, FP32_FLOP_PER_S),
-               # S and dP are computed in both passes: seven products
-               "executed_bound_ms": bound(moved, 1.4 * flops,
-                                          FP32_FLOP_PER_S)["bound_ms"]}
+               **split, "bound_basis": "TF32 tensor cores, three terms a "
+                                       "product (the mma design's work)",
+               "fp32_fma_bound_ms": bound(moved, flops,
+                                          FP32_FLOP_PER_S)["bound_ms"],
+               # the FMA design computes S and dP in both of its passes
+               "fma_design_executed_bound_ms": bound(
+                   moved, 1.4 * flops, FP32_FLOP_PER_S)["bound_ms"]}
         emit({"phase": "kernels", "kernel": "flash_attention_bwd", **row})
         shapes.append(row)
         torch.cuda.empty_cache()
     local = shapes[1]
     return {"name": "flash_attention_bwd", "route": "cuda",
-            "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+            "source": "src/repro_torch/csrc/flash_attention_bwd_mma.cu",
+            "designs": ["mma", "fma"],
+            "sources_by_design": {
+                "mma": "src/repro_torch/csrc/flash_attention_bwd_mma.cu",
+                "fma": "src/repro_torch/csrc/flash_attention_bwd.cu"},
             "replaces": "src/repro/kernels/flash_attention.py:93 (its "
                         "backward: the JAX package differentiates "
                         "src/repro/kernels/ref.py:240 mha_ref)",
@@ -1100,19 +1174,26 @@ def kernel_modules():
 
 
 # per-kernel launch counts kept beside the total: by design, and (for
-# window_score) by the round mask the launch applied; they belong to the
-# module's "launches" kernel
+# window_score) by the round mask the launch applied; a kernel whose
+# count is "<prefix>launches" keeps them as "<prefix><attr>"
 SPLITS = {"design_launches": "by_design", "mask_launches": "by_mask"}
+
+
+def launch_splits(mod, count):
+    """(attribute, suffix) of the split counts of the kernel counted by
+    ``count`` in ``mod``."""
+    prefix = count[:-len("launches")]
+    return [(prefix + attr, suffix) for attr, suffix in SPLITS.items()
+            if hasattr(mod, prefix + attr)]
 
 
 def reset_launches() -> None:
     from repro_torch.kernels import topk_merge
     for mod, count in kernel_modules().values():
         setattr(mod, count, 0)
-        for attr in SPLITS:
-            if hasattr(mod, attr):
-                counts = getattr(mod, attr)
-                counts.update(dict.fromkeys(counts, 0))
+        for attr, _ in launch_splits(mod, count):
+            counts = getattr(mod, attr)
+            counts.update(dict.fromkeys(counts, 0))
     topk_merge.violations("cuda").zero_()
 
 
@@ -1125,9 +1206,8 @@ def read_launches() -> dict:
     out = {}
     for name, (mod, count) in kernel_modules().items():
         out[name] = getattr(mod, count)
-        for attr, suffix in SPLITS.items():
-            if count == "launches" and hasattr(mod, attr):
-                out[f"{name}_{suffix}"] = dict(getattr(mod, attr))
+        for attr, suffix in launch_splits(mod, count):
+            out[f"{name}_{suffix}"] = dict(getattr(mod, attr))
     out["topk_merge_violations"] = int(topk_merge.violations("cuda").item())
     return out
 
@@ -2326,16 +2406,22 @@ def phase_train_lm(torch) -> dict:
           "layers_with_attention_gradients": reached_layers,
           "flash_attention_launches": launches["flash_attention"],
           "flash_attention_launches_by_design": designs,
-          "flash_attention_bwd_launches": launches["flash_attention_bwd"]})
+          "flash_attention_bwd_launches": launches["flash_attention_bwd"],
+          "flash_attention_bwd_launches_by_design":
+              launches["flash_attention_bwd_by_design"]})
     check(reached == TRAIN_LM_STEPS, f"train_lm: stopped at step {reached}")
     check(all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
               for h in history), f"train_lm: non-finite loss {history}")
     check(reached_layers == cfg.n_layers,
           f"train_lm: only {reached_layers} of {cfg.n_layers} layers got "
           "attention gradients")
-    check(launches["flash_attention_bwd"] == TRAIN_LM_STEPS * cfg.n_layers,
+    bwd = TRAIN_LM_STEPS * cfg.n_layers
+    check(launches["flash_attention_bwd"] == bwd
+          and launches["flash_attention_bwd_by_design"] == {"mma": bwd,
+                                                            "fma": 0},
           f"train_lm: the backward kernel launched "
-          f"{launches['flash_attention_bwd']} times")
+          f"{launches['flash_attention_bwd_by_design']}, not {bwd} times "
+          "on the tensor-core design")
     check(launches["flash_attention"] >= launches["flash_attention_bwd"]
           and designs == {"wgmma": 0, "fma": launches["flash_attention"]},
           f"train_lm: forward launches {designs}")
@@ -2383,7 +2469,14 @@ def phase_train_resume(torch) -> dict:
           "leaves": len(pairs), "leaves_differing": differing,
           "wall_seconds": wall,
           "flash_attention_launches": launches["flash_attention"],
-          "flash_attention_bwd_launches": launches["flash_attention_bwd"]})
+          "flash_attention_bwd_launches": launches["flash_attention_bwd"],
+          "flash_attention_bwd_launches_by_design":
+              launches["flash_attention_bwd_by_design"]})
+    check(launches["flash_attention_bwd_by_design"]["fma"] == 0
+          and launches["flash_attention_bwd"] > 0,
+          "train_resume: backward launches "
+          f"{launches['flash_attention_bwd_by_design']}, not all on the "
+          "tensor-core design")
     check(len(hist_b) == TRAIN_RESUME_STEPS - TRAIN_RESUME_AT,
           f"train_resume: the second loop ran {len(hist_b)} steps")
     check(differing == 0, f"train_resume: {differing} of {len(pairs)} "
@@ -3042,28 +3135,88 @@ def tf32_sweep_check(torch, name, job, inputs, g_gpu) -> dict:
 
 # Training parity: the same steps on CUDA and on the CPU (the worker).
 # gemma3-1b at full width with 6 layers (5 local, 1 global), 2 AdamW
-# steps of one sequence of 1,024 tokens; and a LearnedSimilarity.loss
-# gradient on 512 pairs of products-like points
+# steps of one sequence of 1,024 tokens in fp32; the 100m preset (head
+# dim 64) in bf16 (the model computes in its parameters' type), 2 steps
+# of 4 x 256 tokens in 2 microbatches with int8 error-feedback
+# compression: on the card the bf16 forward (wgmma) with the lse and the
+# backward's bf16 route; and a LearnedSimilarity.loss gradient on 512
+# pairs of products-like points
 TRAIN_PARITY_LAYERS, TRAIN_PARITY_SEQ, TRAIN_PARITY_STEPS = 6, 1024, 2
 TRAIN_PARITY_LR = 3e-4
-# Losses within 1e-4 and grad norms within 1e-3 relative (the two
-# devices sum in other orders).  Parameters as tests/test_torch_train.py
-# holds them: every leaf keeps all but 0.1 % of its elements within
-# 1e-5.  AdamW's normalised step is about +-lr wherever the gradient is
-# near 0, so a few coordinates whose tiny gradients the devices sum to
-# another last bit move up to ~lr apart; the steps' learning rates
-# (3e-5 and 6e-5 in warm-up) move nearly every element by more than
-# 1e-5, so a skipped or garbled update fails.  The control: each leaf's
-# share of elements that the steps moved by more than 1e-5 from the
-# initial values must exceed that 0.1 %, or the check could not see a
-# skipped update.
-TRAIN_PARITY_LOSS_RTOL, TRAIN_PARITY_NORM_RTOL = 1e-4, 1e-3
-TRAIN_PARITY_ATOL, TRAIN_PARITY_SHARE = 1e-5, 1e-3
+TRAIN_BF16_BATCH, TRAIN_BF16_SEQ, TRAIN_BF16_STEPS = 4, 256, 2
+TRAIN_BF16_ACCUM, TRAIN_BF16_COMPRESSION = 2, "int8_ef"
+# A step of 3e-5 would vanish below half a bf16 ulp of most weights
+# (|w| ~ 0.02: ulp 1.2e-4), so the bf16 job's rate is 1e-2 (1e-3 and
+# 2e-3 in warm-up)
+TRAIN_BF16_LR = 1e-2
+# Per job: losses within loss_rtol and grad norms within norm_rtol
+# relative (the two devices sum in other orders), and parameters as
+# tests/test_torch_train.py holds them: all but `share` of a leaf's
+# elements within `atol` of the CPU's.
+# - fp32: AdamW's normalised step is about +-lr wherever the gradient is
+#   near 0, so a few coordinates whose tiny gradients the devices sum to
+#   another last bit move up to ~lr apart (share 0.1 % of a leaf); the
+#   steps' rates (3e-5 and 6e-5) move nearly every element by more than
+#   atol.  The control: each leaf's share of elements that the steps
+#   moved by more than atol must exceed `share`, or the check could not
+#   see a skipped update.
+# - bf16: the devices round activations and gradients to bf16 at other
+#   places, so gradients differ by about a per cent, int8 words on a
+#   rounding boundary land one word apart, and an element whose words
+#   differ moves up to a step (1e-3, 2e-3) apart.  atol is half the first
+#   step (a weight rounds to bf16 after each step, whose ulp is below
+#   atol for |w| < 0.125).  The share is counted among the elements the
+#   steps moved by more than atol on the CPU (`of_moved`): two CPU runs of
+#   this job, with 1 and 6 torch threads, differ in up to 5 % of a leaf's
+#   moved elements (0.2-3.9 % of its elements; an embedding's gradient
+#   reaches only the rows of the batch's tokens, 5.7 % of them), where a
+#   skipped update differs in all of them and a wrong gradient in most;
+#   so 20 %.  The control: every leaf moved by more than 1 % on both
+#   devices.
+TRAIN_PARITY_LIMITS = {
+    "train-gemma3-6l": dict(loss_rtol=1e-4, norm_rtol=1e-3, atol=1e-5,
+                            share=1e-3, of_moved=False),
+    "train-100m-bf16": dict(loss_rtol=5e-3, norm_rtol=2e-2, atol=5e-4,
+                            share=0.2, of_moved=True, least_moved=1e-2)}
 LEARNED_LOSS_TOL = 1e-5
 
 
 def train_parity_jobs():
-    return ("train-gemma3-6l", "learned-loss")
+    return ("train-gemma3-6l", "train-100m-bf16", "learned-loss")
+
+
+def lm_parity_steps(torch, cfg, device, steps, batch, seq, accum_steps=1,
+                    compression=None, lr=TRAIN_PARITY_LR, atol=None) -> dict:
+    """``steps`` AdamW steps of ``cfg`` on ``device`` from parameters drawn
+    on the CPU: losses, grad norms, learning rates, the final parameters
+    (on the CPU) and the share of each leaf the steps moved by more than
+    ``atol``."""
+    from repro_torch.data import token_stream_batch
+    from repro_torch.models import init_params
+    from repro_torch.train import AdamWConfig, TrainState, make_train_step
+    from repro_torch.train._tree import leaves, tree_map
+    params = init_params(cfg, torch.Generator().manual_seed(SEED),
+                         device="cpu")
+    params = tree_map(lambda x: x.to(device), params)
+    opt = AdamWConfig(lr=lr, warmup_steps=10, total_steps=100)
+    initial = [x.detach().clone() for x in leaves(params)]
+    state = TrainState.create(opt, params, compression=compression)
+    step = make_train_step(cfg, opt, accum_steps=accum_steps,
+                           compression=compression)
+    out = {"losses": [], "grad_norms": [], "lrs": []}
+    for i in range(steps):
+        tokens = token_stream_batch(i, batch=batch, seq_len=seq,
+                                    vocab=cfg.vocab, seed=SEED, device=device)
+        state, m = step(state, {"tokens": tokens})
+        for key, metric in (("losses", "loss"), ("grad_norms", "grad_norm"),
+                            ("lrs", "lr")):
+            out[key].append(float(m[metric]))
+    out["params"] = [x.cpu() for x in leaves(state.params)]
+    out["leaf_share_moved"] = [
+        (x.float() - x0.float()).abs().gt(atol).double().mean().item()
+        for x, x0 in zip(leaves(state.params), initial)]
+    out["least_leaf_share_moved"] = min(out["leaf_share_moved"])
+    return out
 
 
 def train_parity_run(torch, name, device) -> dict:
@@ -3074,36 +3227,24 @@ def train_parity_run(torch, name, device) -> dict:
     t = time.perf_counter()
     if name == "train-gemma3-6l":
         from repro_torch.configs import gemma3_1b
-        from repro_torch.data import token_stream_batch
-        from repro_torch.models import init_params
-        from repro_torch.train import AdamWConfig, TrainState, make_train_step
-        from repro_torch.train._tree import leaves, tree_map
         cfg = dataclasses.replace(
             gemma3_1b.CONFIG, n_layers=TRAIN_PARITY_LAYERS,
             dtype=torch.float32, param_dtype=torch.float32)
-        params = init_params(cfg, torch.Generator().manual_seed(SEED),
-                             device="cpu")
-        params = tree_map(lambda x: x.to(device), params)
-        opt = AdamWConfig(lr=TRAIN_PARITY_LR, warmup_steps=10,
-                          total_steps=100)
-        initial = [x.detach().clone() for x in leaves(params)]
-        state = TrainState.create(opt, params)
-        step = make_train_step(cfg, opt)
-        out = {"losses": [], "grad_norms": [], "lrs": []}
-        for i in range(TRAIN_PARITY_STEPS):
-            batch = {"tokens": token_stream_batch(
-                i, batch=1, seq_len=TRAIN_PARITY_SEQ, vocab=cfg.vocab,
-                seed=SEED, device=device)}
-            state, m = step(state, batch)
-            for key, metric in (("losses", "loss"),
-                                ("grad_norms", "grad_norm"), ("lrs", "lr")):
-                out[key].append(float(m[metric]))
-        out["params"] = [x.cpu() for x in leaves(state.params)]
-        # the control: the least share of a leaf the steps moved
-        out["least_leaf_share_moved"] = min(
-            (x - x0).abs().gt(TRAIN_PARITY_ATOL).double().mean().item()
-            for x, x0 in zip(leaves(state.params), initial))
-        del initial
+        out = lm_parity_steps(torch, cfg, device, TRAIN_PARITY_STEPS, 1,
+                              TRAIN_PARITY_SEQ,
+                              atol=TRAIN_PARITY_LIMITS[name]["atol"])
+    elif name == "train-100m-bf16":
+        cfg = dataclasses.replace(lm_100m_config(torch),
+                                  dtype=torch.bfloat16,
+                                  param_dtype=torch.bfloat16)
+        from repro_torch.kernels import flash_attention as fa
+        before = fa.bwd_design_launches["mma"]
+        out = lm_parity_steps(
+            torch, cfg, device, TRAIN_BF16_STEPS, TRAIN_BF16_BATCH,
+            TRAIN_BF16_SEQ, accum_steps=TRAIN_BF16_ACCUM,
+            compression=TRAIN_BF16_COMPRESSION, lr=TRAIN_BF16_LR,
+            atol=TRAIN_PARITY_LIMITS[name]["atol"])
+        out["bwd_mma_launches"] = fa.bwd_design_launches["mma"] - before
     else:
         from repro_torch import LearnedSimilarity, TwoTowerConfig
         from repro_torch.data import products_like_points
@@ -3127,42 +3268,49 @@ def train_parity_run(torch, name, device) -> dict:
 
 
 def check_train_parity(torch, name, gpu, cpu) -> None:
-    if name == "train-gemma3-6l":
+    if name in TRAIN_PARITY_LIMITS:
+        lim = TRAIN_PARITY_LIMITS[name]
         rel = lambda a, b: max(abs(x - y) / abs(y) for x, y in zip(a, b))
         d_loss = rel(gpu["losses"], cpu["losses"])
         d_norm = rel(gpu["grad_norms"], cpu["grad_norms"])
-        d_param = max((a - b).abs().max().item()
+        d_param = max((a.float() - b.float()).abs().max().item()
                       for a, b in zip(gpu["params"], cpu["params"],
                                       strict=True))
-        off = [(a - b).abs().gt(TRAIN_PARITY_ATOL).sum().item()
+        off = [(a.float() - b.float()).abs().gt(lim["atol"]).sum().item()
                for a, b in zip(gpu["params"], cpu["params"])]
-        share = max(n / a.numel() for n, a in zip(off, gpu["params"]))
+        # the share of a leaf off: of its elements, or of those the steps
+        # moved on the CPU
+        base = [max(1, round(m * a.numel())) if lim["of_moved"]
+                else a.numel() for m, a in zip(cpu["leaf_share_moved"],
+                                               cpu["params"])]
+        share = max(n / m for n, m in zip(off, base))
+        least = min(gpu["least_leaf_share_moved"],
+                    cpu["least_leaf_share_moved"])
         total = sum(a.numel() for a in gpu["params"])
-        emit({"phase": "parity", "config": name,
-              "layers": TRAIN_PARITY_LAYERS, "seq": TRAIN_PARITY_SEQ,
-              "steps": TRAIN_PARITY_STEPS, "losses": [gpu["losses"],
-                                                      cpu["losses"]],
+        emit({"phase": "parity", "config": name, **lim,
+              "losses": [gpu["losses"], cpu["losses"]],
               "grad_norms": [gpu["grad_norms"], cpu["grad_norms"]],
               "loss_rel_diff": d_loss, "grad_norm_rel_diff": d_norm,
               "param_max_abs_diff": d_param,
-              "params_off_by_more_than_1e-5": sum(off),
+              "params_off_by_more_than_atol": sum(off),
               "largest_leaf_share_off": share,
-              "leaf_share_tolerance": TRAIN_PARITY_SHARE,
               "least_leaf_share_moved": [gpu["least_leaf_share_moved"],
                                          cpu["least_leaf_share_moved"]],
               "params": total,
+              "bwd_mma_launches": gpu.get("bwd_mma_launches"),
               "cuda_seconds": gpu["seconds"], "cpu_seconds": cpu["seconds"]})
-        check(d_loss <= TRAIN_PARITY_LOSS_RTOL,
+        check(d_loss <= lim["loss_rtol"],
               f"{name}: losses differ by {d_loss} (relative)")
-        check(d_norm <= TRAIN_PARITY_NORM_RTOL,
+        check(d_norm <= lim["norm_rtol"],
               f"{name}: grad norms differ by {d_norm} (relative)")
-        check(share <= TRAIN_PARITY_SHARE,
+        check(share <= lim["share"],
               f"{name}: {share} of a leaf's parameters differ by more than "
-              f"{TRAIN_PARITY_ATOL}")
-        check(min(gpu["least_leaf_share_moved"],
-                  cpu["least_leaf_share_moved"]) > TRAIN_PARITY_SHARE,
+              f"{lim['atol']}")
+        check(least > lim.get("least_moved", lim["share"]),
               f"{name}: the steps moved too few parameters for the "
               "parameter check to see a skipped update")
+        check(gpu.get("bwd_mma_launches", 1) > 0,
+              f"{name}: no backward launch on the tensor-core design")
         return
     d_loss = abs(gpu["loss"] - cpu["loss"])
     d_grad = max((gpu["grads"][k] - g).abs().max().item()

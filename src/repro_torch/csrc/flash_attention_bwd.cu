@@ -26,12 +26,13 @@
 // inputs and outputs (0.025 ms at 3.35 TB/s).  This design runs fp32 FMA
 // outside the tensor cores and recomputes S and dP in both of its passes
 // (seven products where the contract counts five), so it cannot come
-// nearer than 1.4x that bound; tensor cores (wgmma) and TMA are later
-// work.
+// nearer than 1.4x that bound.  It is the FMA design: for fp32 and bf16
+// at head dims 64, 128 and 256 kernels/flash_attention.py::_bwd_design
+// picks the tensor-core design (flash_attention_bwd_mma.cu) instead.
 //
 // Design: three launches on one stream, no floating-point atomics, every
 // sum in a fixed order, so that a training step is deterministic.
-//   1. delta: one warp a row, rowsum(do * o) in fp32.
+//   1. delta: one warp a row, rowsum(do * o) in fp32 (attention_delta.cuh).
 //   2. dK / dV: one block of 256 threads per (key block of 32 keys, KV
 //      head, batch row).  K and V are staged once; the block loops over
 //      the group's g query heads and, for each, the query blocks of 32
@@ -53,6 +54,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "attention_delta.cuh"
 
 namespace {
 
@@ -76,10 +79,7 @@ struct Params {
   int causal, has_window, window;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+using attn::to_f32;
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
@@ -172,25 +172,6 @@ __device__ __forceinline__ void tile_grads(
       if (s_p != nullptr) s_p[i * PS + j] = pv;
       s_ds[i * PS + j] = dsv;
     }
-}
-
-template <typename T>
-__global__ void delta_kernel(const T* __restrict__ o,
-                             const T* __restrict__ dout,
-                             float* __restrict__ delta, size_t rows, int d) {
-  const size_t row = blockIdx.x * static_cast<size_t>(kThreads / 32)
-                     + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= rows) return;              // uniform over the warp
-  const T* orow = o + row * d;
-  const T* drow = dout + row * d;
-  float acc = 0.0f;
-  for (int c = lane; c < d; c += 32)
-    acc = fmaf(to_f32(orow[c]), to_f32(drow[c]), acc);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) delta[row] = acc;
 }
 
 template <int DP>
@@ -393,14 +374,9 @@ int launch(const Params& p, int b, cudaStream_t stream) {
   err = cudaFuncSetAttribute(
       dq_kernel<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_q);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t rows = static_cast<size_t>(b) * p.hq * p.sq;
-  const size_t rows_per_block = kThreads / 32;
-  delta_kernel<T><<<static_cast<unsigned>((rows + rows_per_block - 1)
-                                          / rows_per_block),
-                    kThreads, 0, stream>>>(
-      static_cast<const T*>(p.o), static_cast<const T*>(p.dout), p.delta,
-      rows, p.d);
-  err = cudaGetLastError();
+  err = attn::launch_delta<T>(p.o, p.dout, p.delta,
+                             static_cast<size_t>(b) * p.hq * p.sq, p.d,
+                             stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid_kv((p.sk + kB - 1) / kB, p.hq / p.g, b);
   dkdv_kernel<T, DP><<<grid_kv, kThreads, smem_kv, stream>>>(p);

@@ -246,3 +246,18 @@ def mha_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
     group = lambda t: t.reshape(b, hkv, hq // hkv, sk, d).sum(2)
     return dq.to(q.dtype), group(dk).to(q.dtype), group(dv).to(q.dtype)
+
+
+def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The two TF32 terms into which the backward's tensor-core design
+    splits each fp32 operand, as the tensor core reads them: hi = x
+    rounded to 10 explicit mantissa bits, to nearest with ties away from
+    zero (``cvt.rna.tf32.f32``'s rounding), and lo = x - hi (exact in fp32)
+    with its low 13 bits dropped (the tensor core reads the top 19).
+    Returns (hi, lo) as fp32; hi + lo is x within 2^-21 relative."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    # round the magnitude bits: the sign bit stays out of the carry
+    hi = (bits & -0x80000000) | (((bits & 0x7FFFFFFF) + 0x1000)
+                                 & 0x7FFFE000)
+    lo = (bits.view(torch.float32) - hi.view(torch.float32)).view(torch.int32)
+    return hi.view(torch.float32), (lo & -0x2000).view(torch.float32)
