@@ -762,6 +762,16 @@ FLASH_EXTRA = [((2, 4, 2, 64, 64, 32), True, 8),
                ((1, 4, 1, 130, 200, 128), True, 40),
                ((1, 4, 2, 300, 300, 64), True, 100),
                ((1, 4, 1, 200, 333, 128), False, 70)]
+# fp32 cases of the backward's sweep that the forward's lacks, run in
+# fp32 only (the split-TF32 design at head dims 64, 128 and 256): a single
+# query row (generate's decode steps), sq < sk right-aligned with sk just
+# past a key block, windows of 8 and 24 (smaller than a 64-row tile), and
+# the 100m preset's GQA group of 3 at its head dim
+FLASH_MMA_EXTRA = [((1, 2, 2, 1, 70, 64), True, None),
+                   ((2, 2, 1, 31, 65, 128), True, None),
+                   ((1, 4, 1, 200, 200, 64), True, 8),
+                   ((1, 8, 1, 160, 224, 256), True, 24),
+                   ((2, 12, 4, 256, 256, 64), True, None)]
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 BF16_FLOP_PER_S = 989e12        # H100 SXM bf16 dense on the tensor cores
 
@@ -848,10 +858,14 @@ def phase_flash_attention(torch) -> dict:
     cases = [(shape, True, None) for shape in FLASH_SWEEP] + FLASH_EXTRA
     for dtype in (torch.float32, torch.bfloat16):
         by_design = {}
-        for shape, causal, window in cases:
+        extra = FLASH_MMA_EXTRA if dtype == torch.float32 else []
+        for shape, causal, window in cases + extra:
             err, design = check_flash(
                 torch, flash_inputs(torch, gen, shape, dtype), causal, window)
             by_design.setdefault(design, []).append(err)
+        check(set(by_design) == ({"mma", "fma"} if dtype == torch.float32
+                                 else {"wgmma", "fma"}),
+              f"flash_attention {dtype}: the sweep ran {set(by_design)}")
         for design, errs in sorted(by_design.items()):
             emit({"phase": "kernels", "kernel": "flash_attention",
                   "dtype": str(dtype), "design": design, "cases": len(errs),
@@ -907,9 +921,10 @@ def phase_flash_attention(torch) -> dict:
     local = shapes[1]
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention_wgmma.cu",
-            "designs": ["wgmma", "fma"],
+            "designs": ["wgmma", "mma", "fma"],
             "sources_by_design": {
                 "wgmma": "src/repro_torch/csrc/flash_attention_wgmma.cu",
+                "mma": "src/repro_torch/csrc/flash_attention_mma.cu",
                 "fma": "src/repro_torch/csrc/flash_attention.cu"},
             "replaces": "src/repro/kernels/flash_attention.py:93",
             "max_abs_err": max(r["max_abs_err"] for r in shapes),
@@ -1033,7 +1048,70 @@ def sdpa(torch, q, k, v, window, **kw):
                                           enable_gqa=True, **kw)
 
 
-def phase_flash_attention_bwd(torch) -> dict:
+# The training path's attention times, (forward or backward, call) -> ms,
+# from the kernels phase, for train_lm's per-step estimate
+FLASH_PATH_MS = {}
+
+
+def flash_mma_path_row(torch, q, k, v, label, window, err) -> dict:
+    """The training path's fp32 forward with the lse at one call: the
+    mma design in alternating rounds with the FMA design (held to the
+    plain version too), the plain ``mha_lse_ref`` and SDPA's fp32 forward
+    on the same inputs, beside the split-TF32 and fp32 FMA bounds."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    b, hq, sq, d = q.shape
+    sk = k.shape[2]
+    kw = dict(causal=True, window=window)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    fma_out = fa._launch("fma", q, k, v, True, window, None, lse)
+    want, want_lse = ref.mha_lse_ref(q, k, v, **kw)
+    fma_err = (fma_out - want).abs().max().item()
+    fma_lse_err = (lse - want_lse).abs().max().item()
+    check(fma_err <= FLASH_TOL["float32"] and fma_lse_err <= LSE_TOL,
+          f"flash_attention {label}: the fma design differs by {fma_err} "
+          f"(lse {fma_lse_err})")
+    del fma_out, want, want_lse
+    mma_ms, fma_ms = [], []
+    for run in ("mma", "fma", "fma", "mma"):
+        if run == "mma":
+            mma_ms.append(cuda_ms(torch, lambda: fa.flash_attention(
+                q, k, v, return_lse=True, **kw), 10))
+        else:
+            fma_ms.append(cuda_ms(torch, lambda: fa._launch(
+                "fma", q, k, v, True, window, None, lse), 5))
+    plain_ms = cuda_ms(torch, lambda: ref.mha_lse_ref(q, k, v, **kw), 2)
+    library_ms = cuda_ms(torch, lambda: sdpa(torch, q, k, v, window), 10)
+    pairs = visible_pairs(sq, sk, True, window)
+    moved = 2 * nbytes(q) + nbytes(k, v) + nbytes(lse)
+    flops = 4.0 * d * pairs * b * hq
+    ms = min(mma_ms)
+    lib, _ = fa._fn("mma")
+    row = {"at": label, "shape": [b, hq, k.shape[1], sq, sk, d],
+           "window": window, "dtype": "float32", "design": "mma",
+           "max_abs_err": err, "ms": ms, "ms_rounds": mma_ms,
+           "fma_design_ms": min(fma_ms), "fma_design_ms_rounds": fma_ms,
+           "fma_design_max_abs_err": fma_err,
+           "fma_design_lse_max_abs_err": fma_lse_err,
+           "plain_ms": plain_ms, "plain": "ref.mha_lse_ref",
+           "library_ms": library_ms,
+           "library": "torch.nn.functional.scaled_dot_product_attention, "
+                      "fp32",
+           "visible_pairs_per_head": pairs,
+           "contract_tflop_per_s": flops / ms / 1e9,
+           # the design's own bound: three TF32 terms a product
+           **bound(moved, 3 * flops, TF32_FLOP_PER_S),
+           "bound_basis": "TF32 tensor cores, three terms a product (the "
+                          "mma design's work)",
+           "fp32_fma_bound_ms": bound(moved, flops,
+                                      FP32_FLOP_PER_S)["bound_ms"],
+           "blocks_per_sm": lib.flash_attention_mma_blocks_per_sm(d)}
+    emit({"phase": "kernels", "kernel": "flash_attention_mma", **row})
+    FLASH_PATH_MS[("fwd", label)] = ms
+    return row
+
+
+def phase_flash_attention_bwd(torch) -> list:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
@@ -1053,16 +1131,18 @@ def phase_flash_attention_bwd(torch) -> dict:
                                  "forward_max_abs_err")}})
     b, hq, hkv, sq, sk, d = FLASH_BWD_PATH
     q, k, v, do = flash_bwd_inputs(torch, gen, FLASH_BWD_PATH, torch.float32)
-    check(fa._design(q.dtype, d) == "fma",
-          "flash_attention_bwd: the training path's forward is not the fma "
+    check(fa._design(q.dtype, d) == "mma",
+          "flash_attention_bwd: the training path's forward is not the mma "
           "design")
-    shapes = []
+    shapes, fwd_shapes = [], []
     for label, window in (("global", None), ("local", 512)):
         # the forward's o and lse, and the gradients against autograd,
         # at the path's own shape
         errs = check_flash_bwd(torch, (q, k, v, do), True, window)
         check(errs["design"] == "mma", f"flash_attention_bwd {label}: the "
               f"path's call ran the {errs['design']} design")
+        fwd_shapes.append(flash_mma_path_row(
+            torch, q, k, v, label, window, errs["forward_max_abs_err"]))
         torch.cuda.empty_cache()
         o, lse = fa.flash_attention(q, k, v, causal=True, window=window,
                                     return_lse=True)
@@ -1087,12 +1167,6 @@ def phase_flash_attention_bwd(torch) -> dict:
                 fma_ms.append(cuda_ms(torch, lambda: fa._launch_bwd(
                     "fma", *args, True, window, scale), 3))
         plain_ms = cuda_ms(torch, lambda: ref.mha_bwd_ref(*args, **kw), 2)
-        # the training path's forward: the FMA design with the lse, and
-        # SDPA's fp32 forward on the same inputs
-        fwd_ms = cuda_ms(torch, lambda: fa.flash_attention(
-            q, k, v, return_lse=True, **kw), 10)
-        fwd_library_ms = cuda_ms(torch, lambda: sdpa(torch, q, k, v, window),
-                                 10)
         leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
         out = sdpa(torch, *leaves, window)
         library_ms = cuda_ms(torch, lambda: torch.autograd.grad(
@@ -1116,10 +1190,6 @@ def phase_flash_attention_bwd(torch) -> dict:
                "plain_ms": plain_ms, "library_ms": library_ms,
                "library": "backward of torch.nn.functional."
                           "scaled_dot_product_attention",
-               "forward_fma_ms": fwd_ms,
-               "forward_library_ms": fwd_library_ms,
-               "forward_library": "torch.nn.functional."
-                                  "scaled_dot_product_attention, fp32",
                "visible_pairs_per_head": pairs,
                "contract_tflop_per_s": flops / ms / 1e9,
                **split, "bound_basis": "TF32 tensor cores, three terms a "
@@ -1131,9 +1201,18 @@ def phase_flash_attention_bwd(torch) -> dict:
                    moved, 1.4 * flops, FP32_FLOP_PER_S)["bound_ms"]}
         emit({"phase": "kernels", "kernel": "flash_attention_bwd", **row})
         shapes.append(row)
+        FLASH_PATH_MS[("bwd", label)] = ms
         torch.cuda.empty_cache()
-    local = shapes[1]
-    return {"name": "flash_attention_bwd", "route": "cuda",
+    local, fwd_local = shapes[1], fwd_shapes[1]
+    fwd = {"name": "flash_attention_mma", "route": "cuda",
+           "source": "src/repro_torch/csrc/flash_attention_mma.cu",
+           "replaces": "src/repro/kernels/flash_attention.py:93 (its fp32 "
+                       "calls at head dims 64, 128 and 256)",
+           "max_abs_err": max(r["max_abs_err"] for r in fwd_shapes),
+           **{k: fwd_local[k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms")},
+           "shapes": fwd_shapes}
+    return [fwd, {"name": "flash_attention_bwd", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention_bwd_mma.cu",
             "designs": ["mma", "fma"],
             "sources_by_design": {
@@ -1146,7 +1225,7 @@ def phase_flash_attention_bwd(torch) -> dict:
             "max_rel_err": max(r["max_rel_err"] for r in shapes),
             **{k: local[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                      "library_ms")},
-            "shapes": shapes}
+            "shapes": shapes}]
 
 
 def clustered_points(torch, n, d, classes, spread, seed, device,
@@ -1208,6 +1287,9 @@ def read_launches() -> dict:
         out[name] = getattr(mod, count)
         for attr, suffix in launch_splits(mod, count):
             out[f"{name}_{suffix}"] = dict(getattr(mod, attr))
+    # the fp32 forward's tensor-core design, a kernel of its own in the
+    # kernels line (its launches are also flash_attention's)
+    out["flash_attention_mma"] = out["flash_attention_by_design"]["mma"]
     out["topk_merge_violations"] = int(topk_merge.violations("cuda").item())
     return out
 
@@ -2190,7 +2272,7 @@ def phase_lm_embed(torch, cfg, params):
     check(flash == n_layers * LM_DOCS // LM_BLOCK,
           f"lm_embed: flash_attention launched {flash} times, expected "
           f"{n_layers * LM_DOCS // LM_BLOCK}")
-    check(designs == {"wgmma": flash, "fma": 0},
+    check(designs == {"wgmma": flash, "mma": 0, "fma": 0},
           f"lm_embed: flash_attention launches by design {designs}: all "
           f"{flash} should be the tensor-core design")
     check(emb.shape == (LM_DOCS, cfg.d_model) and emb.dtype == torch.float32,
@@ -2393,6 +2475,7 @@ def phase_train_lm(torch) -> dict:
     steps_s = [h["seconds"] for h in history]
     after_first = steps_s[1:] or steps_s
     tokens = TRAIN_LM_BATCH * TRAIN_LM_SEQ
+    attention_ms = train_attention_ms_per_step(cfg, after_first)
     emit({"phase": "train_lm", "model": cfg.name, "params": n_params,
           "layers": cfg.n_layers, "dtype": "float32", "remat": cfg.remat,
           "batch": TRAIN_LM_BATCH, "seq": TRAIN_LM_SEQ, "steps": reached,
@@ -2408,7 +2491,8 @@ def phase_train_lm(torch) -> dict:
           "flash_attention_launches_by_design": designs,
           "flash_attention_bwd_launches": launches["flash_attention_bwd"],
           "flash_attention_bwd_launches_by_design":
-              launches["flash_attention_bwd_by_design"]})
+              launches["flash_attention_bwd_by_design"],
+          **attention_ms})
     check(reached == TRAIN_LM_STEPS, f"train_lm: stopped at step {reached}")
     check(all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
               for h in history), f"train_lm: non-finite loss {history}")
@@ -2422,13 +2506,36 @@ def phase_train_lm(torch) -> dict:
           f"train_lm: the backward kernel launched "
           f"{launches['flash_attention_bwd_by_design']}, not {bwd} times "
           "on the tensor-core design")
-    check(launches["flash_attention"] >= launches["flash_attention_bwd"]
-          and designs == {"wgmma": 0, "fma": launches["flash_attention"]},
-          f"train_lm: forward launches {designs}")
+    check(launches["flash_attention"] == 2 * bwd
+          and designs == {"wgmma": 0, "mma": launches["flash_attention"],
+                          "fma": 0},
+          f"train_lm: forward launches {designs}, not {2 * bwd} on the "
+          "tensor-core design")
     del state
     shutil.rmtree(ckpt, ignore_errors=True)
     torch.cuda.empty_cache()
     return launches
+
+
+def train_attention_ms_per_step(cfg, step_seconds) -> dict:
+    """The attention kernels' device ms a train_lm step, from the kernels
+    phase's times at the path's two calls (FLASH_PATH_MS): with remat the
+    forward launches twice a layer a step, the backward once; and their
+    share of the median step.  Empty if the kernels phase did not run."""
+    from repro_torch.models.stack import layer_defs, layer_plan
+    if len(FLASH_PATH_MS) < 4:
+        return {}
+    windows = [bd.window for bd in layer_defs(layer_plan(cfg))]
+    calls = {"global": windows.count(None),
+             "local": len(windows) - windows.count(None)}
+    fwd = sum(2 * n * FLASH_PATH_MS[("fwd", c)] for c, n in calls.items())
+    bwd = sum(n * FLASH_PATH_MS[("bwd", c)] for c, n in calls.items())
+    step_ms = sorted(step_seconds)[len(step_seconds) // 2] * 1e3
+    return {"layers_by_call": calls,
+            "forward_attention_ms_per_step": fwd,
+            "backward_attention_ms_per_step": bwd,
+            "forward_attention_share_of_step": fwd / step_ms,
+            "backward_attention_share_of_step": bwd / step_ms}
 
 
 def phase_train_resume(torch) -> dict:
@@ -2469,9 +2576,17 @@ def phase_train_resume(torch) -> dict:
           "leaves": len(pairs), "leaves_differing": differing,
           "wall_seconds": wall,
           "flash_attention_launches": launches["flash_attention"],
+          "flash_attention_launches_by_design":
+              launches["flash_attention_by_design"],
           "flash_attention_bwd_launches": launches["flash_attention_bwd"],
           "flash_attention_bwd_launches_by_design":
               launches["flash_attention_bwd_by_design"]})
+    check(launches["flash_attention"] > 0
+          and launches["flash_attention_by_design"]["mma"]
+          == launches["flash_attention"],
+          "train_resume: forward launches "
+          f"{launches['flash_attention_by_design']}, not all on the "
+          "tensor-core design")
     check(launches["flash_attention_bwd_by_design"]["fma"] == 0
           and launches["flash_attention_bwd"] > 0,
           "train_resume: backward launches "
@@ -3178,6 +3293,10 @@ TRAIN_PARITY_LIMITS = {
                             share=1e-3, of_moved=False),
     "train-100m-bf16": dict(loss_rtol=5e-3, norm_rtol=2e-2, atol=5e-4,
                             share=0.2, of_moved=True, least_moved=1e-2)}
+# The forward design each job's attention runs on the card: fp32 at head
+# dim 256 on the split-TF32 tensor-core design, bf16 at 64 on wgmma
+TRAIN_PARITY_FWD_DESIGN = {"train-gemma3-6l": "mma",
+                           "train-100m-bf16": "wgmma"}
 LEARNED_LOSS_TOL = 1e-5
 
 
@@ -3225,6 +3344,8 @@ def train_parity_run(torch, name, device) -> dict:
     import dataclasses
     import numpy as np
     t = time.perf_counter()
+    from repro_torch.kernels import flash_attention as fa
+    fwd_before = dict(fa.design_launches)
     if name == "train-gemma3-6l":
         from repro_torch.configs import gemma3_1b
         cfg = dataclasses.replace(
@@ -3237,7 +3358,6 @@ def train_parity_run(torch, name, device) -> dict:
         cfg = dataclasses.replace(lm_100m_config(torch),
                                   dtype=torch.bfloat16,
                                   param_dtype=torch.bfloat16)
-        from repro_torch.kernels import flash_attention as fa
         before = fa.bwd_design_launches["mma"]
         out = lm_parity_steps(
             torch, cfg, device, TRAIN_BF16_STEPS, TRAIN_BF16_BATCH,
@@ -3245,6 +3365,9 @@ def train_parity_run(torch, name, device) -> dict:
             compression=TRAIN_BF16_COMPRESSION, lr=TRAIN_BF16_LR,
             atol=TRAIN_PARITY_LIMITS[name]["atol"])
         out["bwd_mma_launches"] = fa.bwd_design_launches["mma"] - before
+    if name in TRAIN_PARITY_FWD_DESIGN:
+        out["fwd_launches_by_design"] = {
+            k: n - fwd_before[k] for k, n in fa.design_launches.items()}
     else:
         from repro_torch import LearnedSimilarity, TwoTowerConfig
         from repro_torch.data import products_like_points
@@ -3298,6 +3421,7 @@ def check_train_parity(torch, name, gpu, cpu) -> None:
                                          cpu["least_leaf_share_moved"]],
               "params": total,
               "bwd_mma_launches": gpu.get("bwd_mma_launches"),
+              "fwd_launches_by_design": gpu.get("fwd_launches_by_design"),
               "cuda_seconds": gpu["seconds"], "cpu_seconds": cpu["seconds"]})
         check(d_loss <= lim["loss_rtol"],
               f"{name}: losses differ by {d_loss} (relative)")
@@ -3311,6 +3435,10 @@ def check_train_parity(torch, name, gpu, cpu) -> None:
               "parameter check to see a skipped update")
         check(gpu.get("bwd_mma_launches", 1) > 0,
               f"{name}: no backward launch on the tensor-core design")
+        fwd = gpu["fwd_launches_by_design"]
+        want = TRAIN_PARITY_FWD_DESIGN[name]
+        check(fwd[want] > 0 and sum(fwd.values()) == fwd[want],
+              f"{name}: forward launches by design {fwd}, not all {want}")
         return
     d_loss = abs(gpu["loss"] - cpu["loss"])
     d_grad = max((gpu["grads"][k] - g).abs().max().item()
@@ -3477,7 +3605,8 @@ def main() -> int:
     for phase in (phase_window_score, phase_topk_merge, phase_leader_score,
                   phase_simhash, phase_flash_attention,
                   phase_flash_attention_bwd):
-        kernels.append(phase(torch))
+        entries = phase(torch)
+        kernels += entries if isinstance(entries, list) else [entries]
         torch.cuda.empty_cache()
     x, classes = clustered_points(torch, N_E2E, D_E2E, classes=1000,
                                   spread=0.05, seed=SEED, device="cuda",

@@ -26,9 +26,10 @@
 // TFLOP causal, 0.24 TFLOP with window 512, 0.56 ms and 0.24 ms at the
 // card's 989 TFLOP/s bf16 dense tensor-core rate.  This design runs fp32
 // FMA outside the tensor cores (67 TFLOP/s), so it cannot come nearer
-// than about 15x that bound.  It serves fp32 inputs and bf16 at head dims
-// other than 64, 128 and 256; bf16 at those runs on the tensor cores in
-// flash_attention_wgmma.cu (kernels/flash_attention.py::_design picks).
+// than about 15x that bound.  It serves fp32 and bf16 at head dims other
+// than 64, 128 and 256; at those, bf16 runs on the tensor cores in
+// flash_attention_wgmma.cu and fp32 in flash_attention_mma.cu
+// (kernels/flash_attention.py::_design picks).
 //
 // Design: one block of 256 threads per (q block of BQ rows, query head,
 // batch row), looping over the key blocks of BK keys that are not wholly

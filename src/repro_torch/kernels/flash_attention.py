@@ -1,4 +1,4 @@
-"""CUDA ``flash_attention``: blocked online-softmax GQA attention, in two
+"""CUDA ``flash_attention``: blocked online-softmax GQA attention, in three
 designs picked by dtype and head dim (:func:`_design`), its backward
 ``flash_attention_bwd``, in two designs picked the same way
 (:func:`_bwd_design`), and the ``FlashAttention`` autograd Function that
@@ -7,10 +7,14 @@ joins them.
 - ``"wgmma"`` (``csrc/flash_attention_wgmma.cu``): bf16 at head dims 64,
   128 and 256, every head dim of the repo's configs.  Tensor cores fed by
   TMA; P @ V keeps the fp32 contract by splitting P into two bf16 terms.
-- ``"fma"`` (``csrc/flash_attention.cu``): fp32 inputs, and bf16 at any
-  other head dim up to 512.  fp32 FMA outside the tensor cores.
+- ``"mma"`` (``csrc/flash_attention_mma.cu``): fp32 at head dims 64, 128
+  and 256.  TF32 tensor cores (``mma.sync``) with each fp32 operand split
+  into two TF32 terms, three products a fragment, so the fp32 contract
+  holds; query tiles in the order of :func:`fwd_tile_order`.
+- ``"fma"`` (``csrc/flash_attention.cu``): every other call (fp32 or bf16)
+  up to head dim 512.  fp32 FMA outside the tensor cores.
 
-Both designs write each row's log-sum-exp when asked (``return_lse``),
+All three write each row's log-sum-exp when asked (``return_lse``),
 which the backward reads instead of the scores.  The backward's designs:
 
 - ``"mma"`` (``csrc/flash_attention_bwd_mma.cu``): fp32 and bf16 at head
@@ -46,7 +50,7 @@ from repro_torch.kernels import _build
 # design, and of the backward (plain counts: set them to 0 to measure a
 # run).
 launches = 0
-design_launches = {"wgmma": 0, "fma": 0}
+design_launches = {"wgmma": 0, "mma": 0, "fma": 0}
 bwd_launches = 0
 bwd_design_launches = {"mma": 0, "fma": 0}
 
@@ -71,18 +75,32 @@ BWD_MMA_SEGMENT_TILES = 16
 # 128-byte TMA box row, as its 16-byte stride rule and swizzle need.
 WGMMA_HEAD_DIMS = (64, 128, 256)
 
+# The forward's split-TF32 design (fp32 at BWD_MMA_HEAD_DIMS): query rows
+# a tile, keys a key block, and the warps that split a key block's S
+# (each keeping a partial normaliser of its keys): csrc/
+# flash_attention_mma.cu's kBQ, kBK and kSplit, checked against the
+# library when it loads.
+MMA_BLOCK_ROWS = 64
+MMA_BLOCK_KEYS = 64
+MMA_KEY_SPLITS = 2
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_SOURCES = {"wgmma": "flash_attention_wgmma", "fma": "flash_attention",
+_SOURCES = {"wgmma": "flash_attention_wgmma", "mma": "flash_attention_mma",
+            "fma": "flash_attention",
             "bwd": "flash_attention_bwd", "bwd_mma": "flash_attention_bwd_mma"}
 
 
 def _design(dtype: torch.dtype, d: int) -> str:
     """The design that serves q's dtype and head dim: ``"wgmma"`` for bf16
-    at 64, 128 and 256, ``"fma"`` for everything else."""
-    return "wgmma" if dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS \
-        else "fma"
+    at 64, 128 and 256, ``"mma"`` for fp32 at 64, 128 and 256, ``"fma"``
+    for everything else."""
+    if dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    if dtype == torch.float32 and d in BWD_MMA_HEAD_DIMS:
+        return "mma"
+    return "fma"
 
 
 def _bwd_design(dtype: torch.dtype, d: int) -> str:
@@ -119,6 +137,26 @@ def _fn(design: str):
                 + [_I] * 4 + [_P]
             fn.restype = _I
         return lib, fn
+    if design == "mma":
+        fn = lib.flash_attention_mma_launch
+        if fn.argtypes is None:
+            names = ("block_rows", "block_keys", "key_splits")
+            for name in names:
+                f = getattr(lib, f"flash_attention_mma_{name}")
+                f.argtypes, f.restype = [], _I
+            tiles = tuple(getattr(lib, f"flash_attention_mma_{name}")()
+                          for name in names)
+            want = (MMA_BLOCK_ROWS, MMA_BLOCK_KEYS, MMA_KEY_SPLITS)
+            if tiles != want:
+                raise RuntimeError(
+                    f"flash_attention (mma): the library's tiles and key "
+                    f"splits {tiles} are not the wrapper's {want}")
+            lib.flash_attention_mma_blocks_per_sm.argtypes = [_I]
+            lib.flash_attention_mma_blocks_per_sm.restype = _I
+            fn.argtypes = [_P] * 6 + [_I] * 6 + [ctypes.c_float] \
+                + [_I] * 3 + [_P]
+            fn.restype = _I
+        return lib, fn
     if design == "wgmma":
         fn = lib.flash_attention_wgmma_launch
         if fn.argtypes is None:
@@ -148,15 +186,17 @@ def _launch(design: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if design == "fma" and d > lib.flash_attention_max_head_dim():
         raise ValueError(f"flash_attention: head dim {d} is above the "
                          f"kernel's {lib.flash_attention_max_head_dim()}")
-    if design == "wgmma" and any(t.data_ptr() % 16
-                                 for t in (q, k, v)):
-        raise ValueError("flash_attention: the tensor-core design needs "
+    if design in ("wgmma", "mma") and any(t.data_ptr() % 16
+                                          for t in (q, k, v)):
+        raise ValueError(f"flash_attention: the {design} design needs "
                          "16-byte aligned q, k and v")
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
     out = torch.empty_like(q)
     args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            None if lse is None else lse.data_ptr(),
-            b, hq, hkv, sq, sk, d, float(scale), int(causal),
+            None if lse is None else lse.data_ptr()]
+    if design == "mma":
+        args.append(_fwd_order(q, k, causal, window).data_ptr())
+    args += [b, hq, hkv, sq, sk, d, float(scale), int(causal),
             int(window is not None), 0 if window is None else int(window)]
     if design == "fma":
         args.append(_DTYPES[q.dtype])
@@ -164,6 +204,48 @@ def _launch(design: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = fn(*args, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, f"flash_attention ({design})")
     return out
+
+
+def fwd_tile_order(b: int, hq: int, sq: int, sk: int, causal: bool,
+                   window: Optional[int]) -> np.ndarray:
+    """The order in which the ``"mma"`` design takes its tiles: int32 ids
+    ``query tile * b * hq + batch * hq + head``, every tile once, those
+    with the most visible key blocks of ``MMA_BLOCK_KEYS`` first (ties in
+    id order), so that the last wave on the card holds the lightest
+    tiles.  A tile's key blocks are the kernel's: from the block of its
+    first row's window start to the block of its last row's position."""
+    nqt = -(-sq // MMA_BLOCK_ROWS)
+    nkb = -(-sk // MMA_BLOCK_KEYS)
+    q0 = np.arange(nqt, dtype=np.int64) * MMA_BLOCK_ROWS
+    pos_lo = q0 + (sk - sq)
+    pos_hi = np.minimum(q0 + MMA_BLOCK_ROWS, sq) - 1 + (sk - sq)
+    kb_hi = np.full(nqt, nkb - 1)
+    if causal:
+        kb_hi = np.where(pos_hi < 0, -1,
+                         np.minimum(kb_hi, np.maximum(pos_hi, 0)
+                                    // MMA_BLOCK_KEYS))
+    kb_lo = np.maximum(pos_lo - window + 1, 0) // MMA_BLOCK_KEYS \
+        if window is not None else np.zeros(nqt, np.int64)
+    blocks = np.maximum(kb_hi - kb_lo + 1, 0)
+    per_tile = np.repeat(blocks, b * hq)
+    return np.argsort(-per_tile, kind="stable").astype(np.int32)
+
+
+# (b, hq, sq, sk, causal, window, device) -> the tile order on the device
+_orders: Dict[tuple, torch.Tensor] = {}
+_orders_lock = threading.Lock()
+
+
+def _fwd_order(q: torch.Tensor, k: torch.Tensor, causal: bool,
+               window: Optional[int]) -> torch.Tensor:
+    b, hq, sq, _ = q.shape
+    key = (b, hq, sq, k.shape[2], bool(causal), window, q.device)
+    with _orders_lock:
+        order = _orders.get(key)
+        if order is None:
+            order = _orders[key] = torch.as_tensor(fwd_tile_order(
+                b, hq, sq, k.shape[2], causal, window)).to(q.device)
+        return order
 
 
 def _check(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -8,11 +8,15 @@ before the data-parallel reduction):
     averages out to zero.
 
 ``torch.round`` rounds half to even, as ``jnp.round`` does, so the int8
-words equal the JAX package's.  The JAX package quantises each leaf of
-its tree, in which a plan group's layers are one stacked array; the
-port holds a tensor a layer, so ``scale_groups`` names the leaves that
-share one scale (``train_step`` passes the stacks of the plan), which
-keeps the words equal.
+words equal the JAX package's.  Its step runs the compression under
+``jit``, where XLA rewrites ``peak / 127`` as ``peak * fl(1 / 127)`` and
+fuses the residual ``gf - word * scale`` into one multiply-add; the port
+does both the same way, so scales, words and errors are bit for bit the
+jitted step's.  The JAX package quantises each leaf of its tree, in
+which a plan group's layers are one stacked array; the port holds a
+tensor a layer, so ``scale_groups`` names the leaves that share one
+scale (``train_step`` passes the stacks of the plan), which keeps the
+words equal.
 """
 
 from __future__ import annotations
@@ -32,7 +36,8 @@ def int8_words(gs: Sequence[torch.Tensor], es: Sequence[torch.Tensor]
     values quantised)."""
     gfs = [g.to(torch.float32) + e for g, e in zip(gs, es, strict=True)]
     peak = torch.stack([torch.max(torch.abs(gf)) for gf in gfs]).max()
-    scale = torch.clamp(peak, min=1e-12) / 127.0
+    scale = torch.clamp(peak, min=1e-12) * torch.tensor(
+        1.0 / 127.0, dtype=torch.float32, device=peak.device)
     words = [torch.clamp(torch.round(gf / scale), -127, 127)
              .to(torch.int8) for gf in gfs]
     return words, scale, gfs
@@ -63,6 +68,11 @@ def compress_grads(grads: Any, mode: Optional[str],
                                            [es[i] for i in group])
             for i, w, gf in zip(group, words, gfs):
                 d = w.to(torch.float32) * scale
-                deq[i], err[i] = d.to(gs[i].dtype), gf - d
+                deq[i] = d.to(gs[i].dtype)
+                # gf - w * scale rounded once, as a fused multiply-add:
+                # in float64 the product (8 by 24 bits) is exact, and so
+                # is the difference (w is gf / scale rounded)
+                err[i] = (gf.to(torch.float64) - w.to(torch.float64)
+                          * scale.to(torch.float64)).to(torch.float32)
         return unflatten(grads, deq), unflatten(grads, err)
     raise ValueError(f"unknown compression mode {mode!r}")

@@ -234,13 +234,15 @@ def test_wgmma_split_is_needed():
                                    torch.float16])
 @pytest.mark.parametrize("d", [8, 16, 32, 64, 100, 128, 192, 256, 512])
 def test_design_is_picked_by_dtype_and_head_dim_alone(monkeypatch, dtype, d):
-    """bf16 at head dims 64, 128 and 256 goes to the tensor-core design,
-    everything else to the FMA design, without asking CUDA anything."""
+    """bf16 at head dims 64, 128 and 256 goes to the wgmma design, fp32 at
+    those head dims to the split-TF32 mma design, everything else to the
+    FMA design, without asking CUDA anything."""
     def no_cuda(*args, **kwargs):
         raise AssertionError("_design queried CUDA")
     for name in ("is_available", "get_device_capability", "device_count",
                  "current_device", "get_device_properties"):
         monkeypatch.setattr(torch.cuda, name, no_cuda)
-    want = "wgmma" if dtype == torch.bfloat16 and d in (64, 128, 256) \
-        else "fma"
+    want = "fma"
+    if d in (64, 128, 256) and dtype in (torch.bfloat16, torch.float32):
+        want = "wgmma" if dtype == torch.bfloat16 else "mma"
     assert t_fa._design(dtype, d) == want
