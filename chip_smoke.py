@@ -41,6 +41,19 @@ Phases, one JSON line each; any failed check exits non-zero:
               slabs and stats equal e2e's bit for bit; page faults, hits
               and bytes a repetition, chunks and host syncs, the H2D rate
               beside a pinned copy loop's.
+     e2e_mesh: the same build through GraphBuilder(..., mesh=) on a
+              world-size-1 NCCL group: slabs and counters equal e2e's on
+              the card, 5 payload exchanges a repetition pair, both
+              clusterings against the single-device programs on e2e's
+              slabs, one pair profiled; then p > 1 ranks
+              (chip_smoke.py --mesh-rank R W BACKEND): one a card over
+              NCCL on a machine with two cards or more (at p = the card
+              count, and at p = 2), else two sharing the one card over
+              gloo: the four windowed sources and the prefilter at
+              n = 20,000, then the default build at 2**20 (25
+              repetitions over NCCL, 4 over gloo) and both clusterings
+              of it, each equal slab for slab and label for label to
+              the single-device build on rank 0's card.
   5. e2e_lsh: LSH-Stars (Stars 1) on the first 2**19 points: SimHash
               M = 16, bucket cap W = 10,000, r = 25.
   6. e2e_prefilter: the default SortingLSH build with the 64-bit Hamming
@@ -1503,6 +1516,343 @@ def phase_e2e_paged(torch, x, reference) -> dict:
     del builder, state, live, store, backend
     torch.cuda.empty_cache()
     return launches
+
+
+# The mesh path (e2e_mesh).  p = 1 through NCCL in this process; p > 1
+# as ranks of their own processes (chip_smoke.py --mesh-rank R W
+# BACKEND; mesh_layout picks W and the backend), meeting through a file
+# in MESH_DIR
+MESH_DIR = ROOT / "build" / "mesh"
+N_MESH_SOURCES = 20_000     # the p > 1 part's five configs
+MESH_SOURCE_R = 5
+# repetitions of the p > 1 build at N_E2E: gloo stages every exchange
+# through the host
+MESH_E2E_REPS = {"nccl": 25, "gloo": 4}
+MESH_RANK_TIMEOUT = 400
+
+
+def mesh_configs():
+    """name -> config of the p > 1 part at n = N_MESH_SOURCES: the four
+    windowed sources and the prefilter build, r = MESH_SOURCE_R."""
+    from repro_torch import HashFamilyConfig, StarsConfig
+    m16 = HashFamilyConfig("simhash", m=16)
+    r = MESH_SOURCE_R
+    return {"sorting-stars": StarsConfig(r=r),
+            "lsh-stars": StarsConfig(family=m16, **{**LSH_STARS, "r": r}),
+            "sorting-allpairs": StarsConfig(scoring="allpairs", r=r),
+            "lsh-allpairs": StarsConfig(mode="lsh", scoring="allpairs",
+                                        family=m16, window=1000, r=r),
+            "prefilter": StarsConfig(r=r, **PREFILTER)}
+
+
+def mesh_rendezvous(name: str) -> str:
+    """A fresh ``file://`` rendezvous under MESH_DIR."""
+    MESH_DIR.mkdir(parents=True, exist_ok=True)
+    path = MESH_DIR / name
+    path.unlink(missing_ok=True)
+    return f"file://{path}"
+
+
+def same_slabs(torch, a, b) -> bool:
+    return torch.equal(a.nbr, b.nbr) and torch.equal(
+        a.w.view(torch.int32), b.w.view(torch.int32))
+
+
+def add_launches(total: dict, more: dict) -> dict:
+    """Launch counts summed key by key (the by-design and by-mask splits
+    too)."""
+    for key, val in more.items():
+        if isinstance(val, dict):
+            add_launches(total.setdefault(key, {}), val)
+        else:
+            total[key] = total.get(key, 0) + val
+    return total
+
+
+def mesh_p1(torch, x, reference) -> tuple:
+    """The main path through ``mesh=`` on a world-size-1 NCCL group: the
+    slabs and counters against e2e's, the payload exchanges, then both
+    clusterings against the single-device programs on e2e's slabs."""
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch import GraphBuilder, StarsConfig
+    from repro_torch.distributed import Mesh
+    from repro_torch.graph import accumulator as acc
+    from repro_torch.graph import cluster as cluster_lib
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=mesh_rendezvous("p1"),
+                            rank=0, world_size=1)
+    try:
+        mesh = Mesh.create()
+        cfg = StarsConfig()
+        r, n = cfg.r, x.shape[0]
+        acc.reset_transfer_stats()
+        torch.cuda.synchronize()
+        reset_launches()
+        t = time.perf_counter()
+        builder = GraphBuilder(x, cfg, mesh=mesh).add_reps(r)
+        torch.cuda.synchronize()
+        reps_s = time.perf_counter() - t
+        launches = read_launches()
+        folds = r // 2 + r % 2          # one emit fold a repetition pair
+        for name, ok in {
+                "window_score": lambda c: c == r,
+                "window_score_by_design": lambda c: c == {"pipe": r,
+                                                          "tile": 0},
+                "topk_merge": lambda c: c == folds,
+                "topk_merge_violations": lambda c: c == 0,
+                "leader_score": lambda c: c == 0,
+                "simhash_packed": lambda c: c == 0}.items():
+            check(ok(launches[name]),
+                  f"e2e_mesh: {name} launched {launches[name]}: {launches}")
+        ts = dict(acc.transfer_stats)
+        check(ts["all_to_all_calls"] == 5 * (r // 2) + 4 * (r % 2)
+              and ts["all_to_all_bytes"] == 0,
+              f"e2e_mesh: exchanges {ts}")
+        ref_nbr, ref_w, ref_stats = reference
+        state = builder.slab_state()
+        check(torch.equal(state.nbr, ref_nbr) and torch.equal(
+            state.w.view(torch.int32), ref_w.view(torch.int32)),
+            "e2e_mesh: the mesh slabs differ from e2e's")
+        del state
+        stats = builder.stats
+        for key in ("comparisons", "emitted", "prefilter_ops",
+                    "scored_windows", "reps"):
+            check(stats[key] == ref_stats[key],
+                  f"e2e_mesh: {key} {stats[key]} against e2e's "
+                  f"{ref_stats[key]}")
+        check(stats["dropped"] == 0, "e2e_mesh: dropped entries")
+        times = {}
+        t = time.perf_counter()
+        cc = builder.cluster("components")
+        times["components_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        af, info = builder.cluster("affinity", return_info=True,
+                                   target_clusters=SERVE_TARGET_CLUSTERS)
+        times["affinity_s"] = time.perf_counter() - t
+        check(acc.transfer_stats["edge_fetches"] == 0,
+              "e2e_mesh: clustering fetched edges")
+        t = time.perf_counter()
+        ref_cc, _ = cluster_lib.connected_components_slabs(ref_nbr, n=n)
+        times["components_single_device_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        ref_af, ref_info = cluster_lib.affinity_slabs(
+            ref_nbr, ref_w, n=n, target_clusters=SERVE_TARGET_CLUSTERS)
+        times["affinity_single_device_s"] = time.perf_counter() - t
+        check(np.array_equal(cc, ref_cc),
+              "e2e_mesh: components labels differ from the single device's")
+        check(np.array_equal(af, ref_af) and info == ref_info,
+              f"e2e_mesh: affinity labels differ ({info} / {ref_info})")
+        row = {"p": 1, "backend": mesh.backend, "n": n, "r": r,
+               "seconds_per_rep": reps_s / r, "reps_seconds": reps_s,
+               "slabs_equal_e2e": True, "comparisons": stats["comparisons"],
+               "all_to_all_calls": ts["all_to_all_calls"],
+               "all_to_all_count_calls": ts["all_to_all_count_calls"],
+               "slot_scatter_calls": ts["slot_scatter_calls"],
+               "affinity_rounds": info["rounds"],
+               "affinity_clusters": info["clusters"], **times}
+        # one more repetition pair, profiled (after the comparisons)
+        profile_call(torch, "e2e_mesh", lambda: builder.add_reps(2))
+        return launches, row
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_layout(torch) -> tuple:
+    """(backend, world) of the p > 1 part: NCCL with one rank a card on a
+    machine with two cards or more, else gloo with two ranks sharing the
+    one card."""
+    cards = torch.cuda.device_count()
+    return ("nccl", cards) if cards >= 2 else ("gloo", 2)
+
+
+def mesh_rank(rank: int, world: int, backend: str) -> int:
+    """``chip_smoke.py --mesh-rank R W BACKEND``: rank R of W.  On p = W
+    (and p = 2, a group of the first two ranks, when W > 2) every rank of
+    the group builds the five configs of ``mesh_configs`` at
+    N_MESH_SOURCES and the default build at N_E2E (MESH_E2E_REPS
+    repetitions), then clusters the last (components, and affinity to
+    SERVE_TARGET_CLUSTERS); rank 0 holds each against the single-device
+    build on its card: the slabs bit for bit, the counters, the labels.
+    Each rank times its repetitions between barriers.  Writes
+    MESH_DIR/rank<R>.json."""
+    import ctypes
+    import signal
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch import GraphBuilder, StarsConfig
+    from repro_torch.distributed import Mesh
+    from repro_torch.graph import accumulator as acc
+    from repro_torch.graph import cluster as cluster_lib
+    ctypes.CDLL(None).prctl(1, signal.SIGKILL)     # die with the script
+    torch.set_float32_matmul_precision("highest")
+    device = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(device)
+    dist.init_process_group(backend,
+                            init_method=f"file://{MESH_DIR / 'ranks'}",
+                            rank=rank, world_size=world)
+    groups = {world: None}          # every rank takes part in every group
+    if world > 2:
+        groups[2] = dist.new_group([0, 1])
+    refs, rows, launches = {}, [], {}
+
+    def reference(name, x, cfg, reps):
+        if name not in refs:
+            b = GraphBuilder(x, cfg).add_reps(reps)
+            state = b.slab_state()
+            refs[name] = (state.nbr.clone(), state.w.clone(), b.stats)
+            del b, state
+        return refs[name]
+
+    def build(name, p, mesh, group, x, cfg, reps):
+        acc.reset_transfer_stats()
+        torch.cuda.synchronize()
+        dist.barrier(group=group)
+        reset_launches()
+        t = time.perf_counter()
+        b = GraphBuilder(x, cfg, mesh=mesh).add_reps(reps)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        add_launches(launches, read_launches())
+        dist.barrier(group=group)
+        ts = dict(acc.transfer_stats)
+        state, stats = b.slab_state(), b.stats
+        row = {"build": name, "p": p, "rank": rank, "n": x.shape[0],
+               "reps": reps, "seconds": secs, "seconds_per_rep": secs / reps,
+               "rank_scored_windows": b._backend.rank_scored_windows,
+               "all_to_all_calls": ts["all_to_all_calls"],
+               "all_to_all_bytes": ts["all_to_all_bytes"],
+               "comparisons": stats["comparisons"]}
+        if rank == 0:
+            nbr, w, ref_stats = reference(name, x, cfg, reps)
+            row["slabs_equal"] = bool(torch.equal(state.nbr, nbr) and
+                                      torch.equal(state.w.view(torch.int32),
+                                                  w.view(torch.int32)))
+            row["stats_equal"] = all(stats[k] == ref_stats[k]
+                                     for k in ref_stats)
+        del state
+        return b, row
+
+    for p, group in sorted(groups.items()):
+        if rank >= p:
+            continue
+        mesh = Mesh.create(group, device=device)
+        x = clustered_points(torch, N_MESH_SOURCES, D_E2E, classes=1000,
+                             spread=0.05, seed=SEED + 3, device=device)
+        for name, cfg in mesh_configs().items():
+            b, row = build(name, p, mesh, group, x, cfg, cfg.r)
+            rows.append(row)
+            del b
+        x = clustered_points(torch, N_E2E, D_E2E, classes=1000, spread=0.05,
+                             seed=SEED, device=device)
+        b, row = build("e2e", p, mesh, group, x, StarsConfig(),
+                       MESH_E2E_REPS[backend])
+        reset_launches()
+        t = time.perf_counter()
+        cc = b.cluster("components")
+        row["components_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        af, info = b.cluster("affinity", return_info=True,
+                             target_clusters=SERVE_TARGET_CLUSTERS)
+        row["affinity_s"] = time.perf_counter() - t
+        row["affinity_rounds"] = info["rounds"]
+        add_launches(launches, read_launches())
+        if rank == 0:
+            nbr, w, _ = refs["e2e"]
+            n = x.shape[0]
+            ref_cc, _ = cluster_lib.connected_components_slabs(nbr, n=n)
+            ref_af, ref_info = cluster_lib.affinity_slabs(
+                nbr, w, n=n, target_clusters=SERVE_TARGET_CLUSTERS)
+            row["components_equal"] = bool(np.array_equal(cc, ref_cc))
+            row["affinity_equal"] = bool(np.array_equal(af, ref_af)
+                                         and info == ref_info)
+        rows.append(row)
+        del b, x
+        torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    (MESH_DIR / f"rank{rank}.json").write_text(
+        json.dumps({"rows": rows, "launches": launches}))
+    return 0
+
+
+def mesh_ranks(torch) -> tuple:
+    """The p > 1 part (``mesh_rank``) in W processes of
+    ``mesh_layout``: their launch counts summed, one row a p with every
+    rank's numbers; fails on a rank that fails, a build, counter or label
+    that differs from rank 0's single-device reference, or a build that
+    moved no bytes between the ranks."""
+    import atexit
+    backend, world = mesh_layout(torch)
+    mesh_rendezvous("ranks")
+    procs = []
+    for rank in range(world):
+        (MESH_DIR / f"rank{rank}.json").unlink(missing_ok=True)
+        with open(MESH_DIR / f"rank{rank}.log", "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--mesh-rank", str(rank), str(world), backend],
+                stdout=log, stderr=subprocess.STDOUT, cwd=str(ROOT)))
+    atexit.register(lambda: [p.kill() for p in procs if p.poll() is None])
+    t = time.perf_counter()
+    rcs = []
+    for proc in procs:
+        left = max(1.0, MESH_RANK_TIMEOUT - (time.perf_counter() - t))
+        try:
+            rcs.append(proc.wait(timeout=left))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rcs.append("timeout")
+    wall = time.perf_counter() - t
+    logs = [(MESH_DIR / f"rank{r}.log").read_text()[-3000:]
+            for r in range(world)]
+    check(rcs == [0] * world, f"e2e_mesh: ranks ended {rcs}: {logs}")
+    outs = [json.loads((MESH_DIR / f"rank{r}.json").read_text())
+            for r in range(world)]
+    launches = {}
+    for out in outs:
+        add_launches(launches, out["launches"])
+    rows = [row for out in outs for row in out["rows"]]
+    note = ("one rank a card over NCCL" if backend == "nccl" else
+            "two ranks sharing one card over gloo; not a multi-GPU figure")
+    by_p = []
+    for p in sorted({r["p"] for r in rows}):
+        builds = {}
+        for row in rows:
+            if row["p"] == p:
+                builds.setdefault(row["build"], []).append(row)
+        for name, ranks in builds.items():
+            first = ranks[0]
+            check(first["slabs_equal"] and first["stats_equal"]
+                  and first.get("components_equal", True)
+                  and first.get("affinity_equal", True),
+                  f"e2e_mesh p = {p}: {name} differs from the single-device "
+                  f"build: {first}")
+            check(all(r["comparisons"] == first["comparisons"]
+                      for r in ranks),
+                  f"e2e_mesh p = {p}: {name}: ranks disagree on the counts")
+            check(sum(r["all_to_all_bytes"] for r in ranks) > 0,
+                  f"e2e_mesh p = {p}: {name} moved no bytes between ranks")
+        by_p.append({"p": p, "backend": backend, "note": note,
+                     "builds": builds})
+    return launches, by_p, wall
+
+
+def phase_e2e_mesh(torch, x, reference) -> dict:
+    """The build on a mesh: (a) the main path at p = 1 through NCCL
+    against e2e's slabs, counters and clusterings; (b) p > 1 ranks
+    (``mesh_ranks``) against single-device builds.  Returns the launch
+    counts of both, the child ranks' included."""
+    t = time.perf_counter()
+    launches, row1 = mesh_p1(torch, x, reference)
+    torch.cuda.empty_cache()
+    emit({"phase": "e2e_mesh", **row1})
+    more, by_p, wall = mesh_ranks(torch)
+    for row in by_p:
+        emit({"phase": "e2e_mesh", **row})
+    emit({"phase": "e2e_mesh", "ranks_wall_seconds": wall,
+          "seconds": time.perf_counter() - t})
+    return add_launches(launches, more)
 
 
 def builder_windows(cfg, n) -> int:
@@ -3614,6 +3964,7 @@ def main() -> int:
     by_path = {}
     by_path["e2e"], reference = phase_e2e(torch, x)
     by_path["e2e_paged"] = phase_e2e_paged(torch, x, reference)
+    by_path["e2e_mesh"] = phase_e2e_mesh(torch, x, reference)
     del reference
     by_path.update({"e2e_lsh": phase_e2e_lsh(torch, x[:N_LSH]),
                     "e2e_prefilter": phase_e2e_prefilter(torch, x),
@@ -3648,5 +3999,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(parity_worker() if sys.argv[1:] == ["--parity-worker"]
-             else main())
+    if sys.argv[1:] == ["--parity-worker"]:
+        sys.exit(parity_worker())
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.exit(mesh_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
+    sys.exit(main())

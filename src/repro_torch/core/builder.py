@@ -38,12 +38,22 @@ pages faulted into a bounded device pool, so n is bounded by host memory
 (:class:`_PagedBackend`).  ``cluster`` runs connected components or
 average-linkage Affinity on the live slabs on the device
 (:mod:`repro_torch.graph.cluster`); only the label vector crosses to the
-host.  Not ported yet: the mesh.
+host.
+
+``mesh=`` (a :class:`repro_torch.distributed.Mesh` over a
+``torch.distributed`` group, one rank a process) runs the build over the
+ranks (:class:`_MeshBackend`, :mod:`repro_torch.distributed`): resident
+dense features, the four windowed sources, cosine or dot, with or
+without the prefilter; extend, refresh, checkpoints restored across rank
+counts, and both clusterings on the row-sharded slabs.  Not ported yet
+on a mesh (they raise, naming the argument): the paged store, the
+learned measure's embedding fetch, the pair cache, the exact sweep.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
@@ -53,10 +63,17 @@ from repro_torch import prng
 from repro_torch.core import lsh as lsh_lib
 from repro_torch.core import windows as win_lib
 from repro_torch.core.spanner import Graph
-from repro_torch.core.stars import (StarsConfig, _emit, _prefilter_sketch,
-                                    _rep_candidates, _rep_keys, _rep_seed,
-                                    _rep_window_grid, _score_windows)
+from repro_torch.core.stars import (TIEBREAK_BITS, StarsConfig, _emit,
+                                    _prefilter_sketch, _rep_candidates,
+                                    _rep_keys, _rep_seed, _rep_window_grid,
+                                    _score_windows)
 from repro_torch.device import DeviceLike, as_tensor, resolve_device
+from repro_torch.distributed import cluster_dist, comm
+from repro_torch.distributed.sorter import (distributed_window_blocks,
+                                            from_wire, pack_bit_fields,
+                                            to_wire)
+from repro_torch.distributed.stars_dist import (accumulate_all_to_all,
+                                                fetch_rows_all_to_all)
 from repro_torch.graph import accumulator as acc_lib
 from repro_torch.service.delta import SlabDelta, diff_rows, replay_chain
 from repro_torch.similarity import pair_cache as pc_lib
@@ -203,7 +220,35 @@ CANDIDATE_SOURCES: Dict[str, Callable] = {
 }
 
 
-class _SingleDeviceBackend:
+class _Backend:
+    """What a session asks of its backend, with the one-device answers:
+    the (n, k) slabs on the store's device (outside a paged store's pool
+    budget), rounds one at a time, the one-device clustering programs."""
+
+    pairs_rounds = False        # run_round_pair shares one exchange a pair
+
+    def init_state(self, capacity: int) -> acc_lib.EdgeAccumulator:
+        return acc_lib.EdgeAccumulator.create(
+            self.n, capacity, device=self.store.device)
+
+    def grow_state(self, state, n: int, capacity: int):
+        return acc_lib.grow(state, n, capacity)
+
+    def trim(self, state: acc_lib.EdgeAccumulator) -> acc_lib.EdgeAccumulator:
+        """The (n, k) slab image of ``state``."""
+        return state
+
+    def state_from_host(self, nbr, w, ver) -> acc_lib.EdgeAccumulator:
+        return acc_lib.from_host(nbr, w, ver, device=self.store.device)
+
+    def cluster_programs(self):
+        """(components, affinity): the programs that cluster the slabs."""
+        from repro_torch.graph import cluster as cluster_lib
+        return (cluster_lib.connected_components_slabs,
+                cluster_lib.affinity_slabs)
+
+
+class _SingleDeviceBackend(_Backend):
     """The features and the slab state on one device.
 
     The features ride in a :class:`ResidentFeatureStore`; a stateful
@@ -241,13 +286,6 @@ class _SingleDeviceBackend:
     @property
     def n(self) -> int:
         return self.store.n
-
-    def init_state(self, capacity: int) -> acc_lib.EdgeAccumulator:
-        return acc_lib.EdgeAccumulator.create(
-            self.n, capacity, device=self.store.device)
-
-    def grow_state(self, state, n: int, capacity: int):
-        return acc_lib.grow(state, n, capacity)
 
     def ensure_measure_state(self) -> int:
         """Run the measure's precompute over the rows not yet embedded
@@ -339,7 +377,7 @@ def _stream_embed_rows(store: PagedFeatureStore, measure: Measure,
     return torch.cat(parts)[:count]
 
 
-class _PagedBackend:
+class _PagedBackend(_Backend):
     """A single-device build over a host-paged feature table: ``n`` is
     bounded by host memory, the device's feature bytes by the store's
     page pool (``StarsConfig.feature_pool_bytes``).
@@ -387,15 +425,6 @@ class _PagedBackend:
     @property
     def n(self) -> int:
         return self.store.n
-
-    # the slabs: as on the resident backend (O(n k) device tensors,
-    # outside the feature pool's budget)
-    def init_state(self, capacity: int) -> acc_lib.EdgeAccumulator:
-        return acc_lib.EdgeAccumulator.create(
-            self.n, capacity, device=self.store.device)
-
-    def grow_state(self, state, n: int, capacity: int):
-        return acc_lib.grow(state, n, capacity)
 
     def ensure_measure_state(self) -> int:
         """Stream-embed the rows not yet in the store's state table (all
@@ -486,6 +515,327 @@ class _PagedBackend:
         self.store.append(new_features)
 
 
+def _sketch_keys(cfg: StarsConfig, n: int, words: torch.Tensor,
+                 rep_index: int, gid0: int):
+    """A rank's sketch words -> bit-packed sort keys and gids.
+
+    The key is the big-endian field stream (the LSH bucket id, or the M
+    sketch words at ``lsh.word_bits`` each; the top ``TIEBREAK_BITS`` of
+    the repetition's (n,) tiebreak draw, looked up by gid; a zero pad; the
+    gid in ``n.bit_length()`` bits) packed into ``ceil(bits / 32)`` words
+    (``sorter.pack_bit_fields``), so the packed keys sort as the
+    single-device sort orders the points, the gid last.  The rows past
+    ``n`` (the mesh's padding) are left out.
+    """
+    rows = words.shape[0]
+    dev = words.device
+    gids = gid0 + torch.arange(rows, dtype=torch.int64, device=dev)
+    real = gids < n
+    words, gids = words[real], gids[real]
+    k_tie = _rep_keys(cfg, rep_index)[0]
+    tie = prng.bits(k_tie, (n,), device=dev)[gids] >> (32 - TIEBREAK_BITS)
+    if cfg.mode == "lsh":
+        # word 0 is the 32-bit bucket id (distributed_window_blocks'
+        # bucket_word=0)
+        fields, widths = [lsh_lib.bucket_key(words, cfg.family)], [32]
+    else:
+        fields = list(words.unbind(1))
+        widths = [lsh_lib.word_bits(cfg.family)] * len(fields)
+    gid_bits = int(n).bit_length()
+    pad = (-(sum(widths) + TIEBREAK_BITS + gid_bits)) % 32
+    fields += [tie, torch.zeros_like(gids), gids]
+    widths += [TIEBREAK_BITS, pad, gid_bits]
+    return pack_bit_fields(fields, widths), gids.to(torch.int32)
+
+
+class _MeshBackend(_Backend):
+    """The build on a mesh of p ranks, one process each: features, slabs
+    and scoring partitioned over the ranks.
+
+    Row layout: the point count is padded to ``n_pad = ceil(n / p) * p``
+    and rank r holds rows ``[r, r + 1) * n_pad / p`` of the feature table
+    and of the slabs; row ``gid`` lives on rank ``gid // (n_pad / p)``.
+    Every rank is handed the same full features (or, on ``restore``, the
+    host slab image) and copies only its block to its device.  An
+    ``extend`` re-pads and reshards: the old rows move to their new
+    owners in one all-to-all (``comm.reshard_rows``), each rank copies
+    its share of the new rows, and the slabs follow in ``grow_state``.
+    ``trim`` gathers the real rows of the slabs to every rank:
+    ``finalize`` and ``checkpoint`` see the (n, k) image, so a checkpoint
+    restores onto any p or one device.
+
+    A repetition (``stars_dist`` has the data path): each rank sketches
+    its block into bit-packed keys (:func:`_sketch_keys`); the sample
+    sort hands it its striped window rows
+    (``sorter.distributed_window_blocks``, after the sorting-mode shift
+    is drawn); it fetches those rows' features (and prefilter words,
+    bitcast beside them) from their owners
+    (``stars_dist.fetch_rows_all_to_all``), scores its rows with
+    ``stars._score_windows`` in its row-subset mode (``row_offset=rank,
+    stride=p``: leader and refresh draws keyed by global row), and the
+    emit routes every insertion triple to its row's owner
+    (``stars_dist.accumulate_all_to_all``).  Two repetitions share one
+    fetch and one emit (:meth:`run_round_pair`).  The counters are summed
+    over the ranks with one all-reduce a round (or pair), so ``stats``
+    are the global totals on every rank; ``rank_scored_windows`` keeps
+    this rank's scored window rows.
+
+    Not ported yet (they raise from ``GraphBuilder``): the paged store
+    and a learned measure on a mesh.
+    """
+
+    pairs_rounds = True
+
+    def __init__(self, features, cfg: StarsConfig, mesh, measure: Measure):
+        windowed = ("lsh-stars", "sorting-stars",
+                    "lsh-allpairs", "sorting-allpairs")
+        if cfg.source_name not in windowed:
+            raise NotImplementedError(
+                f"the mesh backend runs the windowed repetition sources "
+                f"{windowed}, got {cfg.source_name!r}")
+        if cfg.measure not in ("cosine", "dot"):
+            raise NotImplementedError(
+                f"StarsConfig.measure={cfg.measure!r} on a mesh: the port's "
+                "mesh scores cosine and dot (the learned measure's "
+                "embedding fetch on a mesh is not ported yet)")
+        self.cfg = cfg
+        self.mesh = mesh
+        self.p = mesh.size
+        self.measure = measure
+        dense = _dense_source(features)
+        if dense is None:
+            raise ValueError(
+                "the mesh backend needs dense features: the features= "
+                "argument carries no dense block")
+        self._n = int(dense.shape[0])
+        self._place_features(self._block(dense, self._n))
+        self._slab_n = self._n          # the n the slab layout was made for
+        self.rank_scored_windows = 0
+        self._tables: Dict = {}         # n -> the fetch table block
+
+    @property
+    def n(self) -> int:
+        return self._n
+
+    @property
+    def device(self) -> torch.device:
+        return self.mesh.device
+
+    def _rows(self, n: int) -> int:
+        """Rows a rank of the padded layout for ``n`` points."""
+        return comm.layout_rows(n, self.p)
+
+    def _block(self, rows: torch.Tensor, n: int, fill=0, *, base: int = 0,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """This rank's row block of the padded layout for ``n`` points, in
+        storage of its own on the mesh's device.  Table rows ``[base, base
+        + len(rows))`` come from ``rows`` (host or device; only this
+        rank's share is copied), the others are ``fill`` or, with ``out``,
+        kept from it.  Floating rows are taken as float32."""
+        size = self._rows(n)
+        lo = self.mesh.rank * size
+        if out is None:
+            dtype = torch.float32 if rows.is_floating_point() else rows.dtype
+            out = torch.full((size,) + tuple(rows.shape[1:]), fill,
+                             dtype=dtype, device=self.device)
+        a, b = max(lo, base), min(lo + size, n, base + rows.shape[0])
+        if b > a:
+            out[a - lo:b - lo] = rows[a - base:b - base].to(self.device)
+        return out
+
+    def _place_features(self, block: torch.Tensor) -> None:
+        self.store = ResidentFeatureStore(PointFeatures(dense=block))
+
+    # -- slab state ----------------------------------------------------- #
+    def init_state(self, capacity: int) -> acc_lib.EdgeAccumulator:
+        self._slab_n = self._n
+        return acc_lib.EdgeAccumulator.create(self._rows(self._n), capacity,
+                                              device=self.device)
+
+    def state_from_host(self, nbr, w, ver) -> acc_lib.EdgeAccumulator:
+        """This rank's block of an (n, k) host slab image (only its rows
+        reach the device)."""
+        host = lambda a, dt: as_tensor(np.asarray(a), device="cpu", dtype=dt)
+        n = self._slab_n = int(np.shape(nbr)[0])
+        return acc_lib.EdgeAccumulator(
+            nbr=self._block(host(nbr, torch.int32), n, -1),
+            w=self._block(host(w, torch.float32), n, float("-inf")),
+            ver=self._block(host(ver, torch.int32), n))
+
+    def grow_state(self, state, n: int, capacity: int):
+        """Regrow the slabs for ``n`` points and ``capacity`` columns: when
+        the layout moves, the rows go to their new owners
+        (``comm.reshard_rows``); new slots start empty."""
+        n_old, self._slab_n = self._slab_n, n
+        if n != n_old:
+            move = lambda t, fill: comm.reshard_rows(self.mesh, t, n_old, n,
+                                                     fill)
+            state = acc_lib.EdgeAccumulator(
+                nbr=move(state.nbr, -1), w=move(state.w, float("-inf")),
+                ver=move(state.ver, 0))
+        return acc_lib.grow(state, state.n, capacity)
+
+    def trim(self, state: acc_lib.EdgeAccumulator) -> acc_lib.EdgeAccumulator:
+        """The real rows of the slabs, gathered to every rank."""
+        n = self._slab_n
+        return acc_lib.EdgeAccumulator(
+            nbr=comm.all_gather_rows(self.mesh, state.nbr)[:n],
+            w=comm.all_gather_rows(self.mesh, state.w)[:n],
+            ver=comm.all_gather_rows(self.mesh, state.ver)[:n])
+
+    def ensure_measure_state(self) -> int:
+        return 0                        # cosine / dot keep no state
+
+    def cluster_programs(self):
+        return (functools.partial(cluster_dist.connected_components_mesh,
+                                  mesh=self.mesh),
+                functools.partial(cluster_dist.affinity_mesh, mesh=self.mesh))
+
+    # -- one repetition ------------------------------------------------- #
+    def _fetch_table(self) -> torch.Tensor:
+        """This rank's block of the table the fetch serves: the features,
+        with the packed prefilter words beside them as float32 bit
+        patterns when the prefilter is armed (one exchange for both)."""
+        if self._n not in self._tables:
+            dense = self.store.features.dense
+            table = dense
+            if self.cfg.hamming_prefilter_bits > 0:
+                pref = _prefilter_sketch(PointFeatures(dense=dense),
+                                         self.cfg.hamming_prefilter_bits,
+                                         self.cfg.seed)
+                table = torch.cat([dense, to_wire(pref).view(torch.float32)],
+                                  dim=1)
+            self._tables = {self._n: table}
+        return self._tables[self._n]
+
+    def _sort_round(self, rep_index: int):
+        """Sketch and sample-sort one repetition -> this rank's slots."""
+        cfg, n = self.cfg, self._n
+        words = lsh_lib.sketch(self.store.features, cfg.family,
+                               rep_seed=_rep_seed(cfg, rep_index))
+        keys, gids = _sketch_keys(cfg, n, words, rep_index,
+                                  self.mesh.rank * self._rows(n))
+        k_shift = _rep_keys(cfg, rep_index)[1]
+        offset, _ = win_lib.window_layout(cfg.mode, n, cfg.window, k_shift)
+        _, _, total_slots = win_lib.shard_row_layout(cfg.mode, n, cfg.window,
+                                                     self.p)
+        gid, bucket, _ = distributed_window_blocks(
+            keys, gids, self.mesh, slot_offset=offset,
+            total_slots=total_slots,
+            bucket_word=0 if cfg.mode == "lsh" else None,
+            payload_bits=int(n).bit_length(), window=cfg.window)
+        return gid, bucket
+
+    def _score(self, rep_index: int, gid, bucket, rows, new_from: int,
+               refresh_below: int, refresh_fraction: float, probs):
+        """Score this rank's striped window rows from the fetched rows."""
+        cfg = self.cfg
+        w = cfg.window
+        nw, rps, _ = win_lib.shard_row_layout(cfg.mode, self._n, w, self.p)
+        d = self.store.features.dense.shape[1]
+        gid = gid.reshape(rps, w)
+        win = win_lib.Windows(gid=gid, valid=gid >= 0,
+                              bucket=bucket.reshape(rps, w))
+        pref = (from_wire(rows[:, d:].view(torch.int32))
+                if cfg.hamming_prefilter_bits > 0 else None)
+        _, _, k_lead, k_refresh = _rep_keys(cfg, rep_index)
+        out = _score_windows(
+            cfg, PointFeatures(dense=rows[:, :d]), pref, win, k_lead,
+            new_from=new_from, refresh_below=refresh_below,
+            refresh_fraction=refresh_fraction, k_refresh=k_refresh,
+            refresh_probs=probs, measure=self.measure,
+            row_offset=self.mesh.rank, total_rows=nw, stride=self.p,
+            member_index=torch.arange(rps * w, device=self.device)
+            .reshape(rps, w))
+        self.rank_scored_windows += out["scored_windows"]
+        return out
+
+    def _counters(self, outs) -> List[Dict]:
+        """Each round's counters summed over the ranks (one all-reduce)."""
+        keys = ("comparisons", "emitted", "prefilter_ops")
+        local = torch.tensor(
+            [[int(o["scored_windows"])] for o in outs], dtype=torch.int64,
+            device=self.device)
+        sums = torch.stack([torch.stack([o[k].sum(dtype=torch.int64)
+                                         for k in keys]) for o in outs])
+        total = comm.all_reduce_sum(self.mesh, torch.cat([sums, local], 1))
+        zero = torch.zeros((), dtype=torch.int64, device=self.device)
+        return [dict(zip(keys + ("scored_windows",), row.unbind()),
+                     dropped=zero) for row in total]
+
+    def run_round(self, state, rep_index: int, new_from: int,
+                  refresh_below: int = 0, refresh_fraction: float = 1.0,
+                  refresh_probs: Optional[np.ndarray] = None):
+        gid, bucket = self._sort_round(rep_index)
+        rows, _, _ = fetch_rows_all_to_all(self._fetch_table(), gid,
+                                           mesh=self.mesh)
+        out = self._score(rep_index, gid, bucket, rows, new_from,
+                          refresh_below, refresh_fraction, refresh_probs)
+        state, _ = accumulate_all_to_all(
+            state, out["src"], out["dst"], out["w"], out["emit"],
+            mesh=self.mesh, exact_weights=self.cfg.exact_weights)
+        return state, self._counters([out])[0]
+
+    def run_round_pair(self, state, rep_index: int, new_from: int,
+                       refresh_below: int = 0, refresh_fraction: float = 1.0,
+                       refresh_probs=(None, None)):
+        """Two consecutive repetitions sharing one fetch and one emit
+        exchange (5 payload all-to-alls instead of 8).  The fold of both
+        streams at once equals two folds in turn (a row's top k of the
+        union), so pairing changes no edge; a row's version moves once."""
+        reps = (rep_index, rep_index + 1)
+        sorted_ = [self._sort_round(r) for r in reps]
+        rows, _, _ = fetch_rows_all_to_all(
+            self._fetch_table(), tuple(g for g, _ in sorted_),
+            mesh=self.mesh)
+        outs = [self._score(r, g, b, x, new_from, refresh_below,
+                            refresh_fraction, probs)
+                for r, (g, b), x, probs in zip(reps, sorted_, rows,
+                                               refresh_probs)]
+        state, _ = accumulate_all_to_all(
+            state, *([o[k] for o in outs] for k in ("src", "dst", "w",
+                                                    "emit")),
+            mesh=self.mesh, exact_weights=self.cfg.exact_weights)
+        counters_a, counters_b = self._counters(outs)
+        return state, counters_a, counters_b
+
+    def extend(self, new_features: PointFeatures) -> None:
+        """Pad and reshard: the old rows go to their owners in the layout
+        for the new n (``comm.reshard_rows``), and this rank copies its
+        share of the new rows."""
+        new = _dense_source(new_features)
+        n_old = self._n
+        self._n += int(new.shape[0])
+        block = comm.reshard_rows(self.mesh, self.store.features.dense,
+                                  n_old, self._n, 0)
+        self._place_features(self._block(new, self._n, base=n_old,
+                                         out=block))
+
+
+def _check_mesh_args(features, cfg: StarsConfig, mesh,
+                     device: DeviceLike) -> None:
+    """Refuse what the port's mesh does not run, naming the argument."""
+    want = None if device is None else torch.device(device)
+    if want is not None and (want.type != mesh.device.type or want.index
+                             not in (None, mesh.device.index)):
+        raise ValueError(
+            f"device={device!r} with mesh=: the session runs on the mesh's "
+            f"device {mesh.device}")
+    if isinstance(features, FeatureStore) or cfg.feature_store != "resident":
+        raise NotImplementedError(
+            "mesh= takes resident dense features: a FeatureStore or "
+            f"StarsConfig.feature_store={cfg.feature_store!r} (the paged "
+            "store on a mesh) is not ported yet")
+    if isinstance(features, PointFeatures) and features.dense is None:
+        raise ValueError(
+            "mesh= needs dense features: the features= argument carries no "
+            "dense block")
+    if cfg.pair_cache_slots > 0:
+        raise NotImplementedError(
+            "the pair-score cache is device-resident single-device state; "
+            "it does not combine with mesh= (set pair_cache_slots=0)")
+
+
 def as_feature_store(features, cfg: StarsConfig,
                      device: torch.device) -> FeatureStore:
     """The session's FeatureStore: one passed in as it is, or the store
@@ -503,6 +853,17 @@ def as_feature_store(features, cfg: StarsConfig,
                                   device=device)
     return make_feature_store(_as_features(features, device),
                               cfg.feature_store)
+
+
+def _dense_source(features) -> Optional[torch.Tensor]:
+    """The dense block of ``features`` (a PointFeatures, an array or a
+    tensor) as a tensor where it lies: a host array is wrapped, not
+    moved; None without one."""
+    dense = (features.dense if isinstance(features, PointFeatures)
+             else features)
+    if dense is None or isinstance(dense, torch.Tensor):
+        return dense
+    return as_tensor(dense, device=torch.device("cpu"))
 
 
 def _as_features(features, device: torch.device) -> PointFeatures:
@@ -587,6 +948,12 @@ class GraphBuilder:
                 or any Measure; its parameters move to ``device``.
       learned_apply: a legacy ``(fa, fb) -> sims`` closure for
                 ``measure='learned'``: every tile pays the whole model.
+      mesh:     a :class:`repro_torch.distributed.Mesh`: the build runs
+                over its ranks, one process each, every rank calling with
+                the same full features and keeping its row block
+                (:class:`_MeshBackend`); the session runs on the mesh's
+                device.  Resident dense features, the four windowed
+                sources, cosine or dot, with or without the prefilter.
     """
 
     # Per-round counters stay on the device and are summed to host ints
@@ -596,11 +963,14 @@ class GraphBuilder:
     def __init__(self, features, cfg: StarsConfig, *,
                  device: DeviceLike = None,
                  learned_apply: Optional[Callable] = None,
-                 measure: Optional[Measure] = None):
+                 measure: Optional[Measure] = None, mesh=None):
         if measure is not None and learned_apply is not None:
             raise ValueError(
                 "pass either measure= or the legacy learned_apply=, not "
                 "both (they would name two different scoring functions)")
+        if mesh is not None:
+            _check_mesh_args(features, cfg, mesh, device)
+            device = mesh.device
         if cfg.refresh_rate < 0:
             raise ValueError(f"refresh_rate must be >= 0: {cfg.refresh_rate}")
         if cfg.refresh_rate > 0 and not cfg.refresh_fraction > 0:
@@ -615,28 +985,11 @@ class GraphBuilder:
             learned=measure if measure is not None else learned_apply
         ).to(self.device)
         self._cache_on = cfg.pair_cache_slots > 0
-        store = as_feature_store(features, cfg, self.device)
-        self._store = store
-        paged = isinstance(store, PagedFeatureStore)
-        if self._cache_on:
-            if not self._measure.expensive:
-                raise ValueError(
-                    f"pair_cache_slots={cfg.pair_cache_slots} only pays "
-                    f"for an expensive (learned) measure; "
-                    f"measure={cfg.measure!r} is closed-form")
-            if paged:
-                raise NotImplementedError(
-                    "the pair-score cache is device-resident state; it does "
-                    "not combine with feature_store='paged' (set "
-                    "pair_cache_slots=0)")
-            if cfg.source_name == "allpairs":
-                raise ValueError(
-                    "the exact 'allpairs' sweep scores every pair once: "
-                    "a pair cache cannot hit (set pair_cache_slots=0)")
         self._embed_rows = 0
-        self._backend = (_PagedBackend(store, cfg, self._measure) if paged
-                         else _SingleDeviceBackend(store, cfg,
-                                                   self._measure))
+        if mesh is not None:
+            self._backend = _MeshBackend(features, cfg, mesh, self._measure)
+        else:
+            self._backend = self._single_device_backend(features)
         self._reps_done = 0
         self._counters: List[Dict] = []
         self._stats_base: Dict[str, int] = {}
@@ -658,6 +1011,30 @@ class GraphBuilder:
         self._capacity = cfg.slab_capacity(self.n, reps=max(cfg.r, 1))
         self._state: Optional[acc_lib.EdgeAccumulator] = None
 
+    def _single_device_backend(self, features):
+        """The resident or paged backend over the store ``cfg`` names."""
+        cfg = self.cfg
+        store = as_feature_store(features, cfg, self.device)
+        paged = isinstance(store, PagedFeatureStore)
+        if self._cache_on:
+            if not self._measure.expensive:
+                raise ValueError(
+                    f"pair_cache_slots={cfg.pair_cache_slots} only pays "
+                    f"for an expensive (learned) measure; "
+                    f"measure={cfg.measure!r} is closed-form")
+            if paged:
+                raise NotImplementedError(
+                    "the pair-score cache is device-resident state; it does "
+                    "not combine with feature_store='paged' (set "
+                    "pair_cache_slots=0)")
+            if cfg.source_name == "allpairs":
+                raise ValueError(
+                    "the exact 'allpairs' sweep scores every pair once: "
+                    "a pair cache cannot hit (set pair_cache_slots=0)")
+        if paged:
+            return _PagedBackend(store, cfg, self._measure)
+        return _SingleDeviceBackend(store, cfg, self._measure)
+
     @property
     def n(self) -> int:
         """Number of points in the session."""
@@ -665,8 +1042,9 @@ class GraphBuilder:
 
     @property
     def feature_store(self) -> FeatureStore:
-        """The session's FeatureStore (resident or paged)."""
-        return self._store
+        """The session's FeatureStore (resident or paged; on a mesh, this
+        rank's row block)."""
+        return self._backend.store
 
     @property
     def measure(self) -> Measure:
@@ -710,7 +1088,7 @@ class GraphBuilder:
 
     def _validate_extend(self, nf: PointFeatures) -> None:
         """Refuse a batch the store cannot take, naming the argument."""
-        table = self._store.checkpoint_view()
+        table = self._backend.store.checkpoint_view()
         for name in ("dense", "set_idx", "set_w", "set_mask"):
             have, new = getattr(table, name), getattr(nf, name)
             if (have is None) != (new is None):
@@ -817,14 +1195,26 @@ class GraphBuilder:
         self._embed_rows += self._backend.ensure_measure_state()
         self._grow(self.n, self._reps_done + reps)
         refresh = refresh_below > 0
-        for _ in range(reps):
+        done = 0
+        while done < reps:
             rep = self._reps_done
-            probs = (self._next_refresh_probs(rep, refresh_fraction)
-                     if refresh else None)
-            self._state, counters = self._backend.run_round(
-                self._state, rep, new_from, refresh_below=refresh_below,
-                refresh_fraction=refresh_fraction, refresh_probs=probs)
-            self._note_round(counters, refresh, progress)
+            # a pair's probabilities in turn: the second sees the age
+            # ledger after the first, as two single rounds would
+            pair = self._backend.pairs_rounds and reps - done >= 2
+            probs = [self._next_refresh_probs(rep + i, refresh_fraction)
+                     if refresh else None for i in range(1 + pair)]
+            kw = dict(refresh_below=refresh_below,
+                      refresh_fraction=refresh_fraction)
+            if pair:
+                self._state, *counters = self._backend.run_round_pair(
+                    self._state, rep, new_from, refresh_probs=probs, **kw)
+            else:
+                self._state, counters = self._backend.run_round(
+                    self._state, rep, new_from, refresh_probs=probs[0], **kw)
+                counters = [counters]
+            for c in counters:
+                self._note_round(c, refresh, progress)
+            done += len(counters)
 
     def _note_round(self, counters: Dict, refresh: bool,
                     progress: Progress) -> None:
@@ -911,8 +1301,9 @@ class GraphBuilder:
 
     # -- versioned slabs and the delta stream ------------------------- #
     def slab_state(self) -> acc_lib.EdgeAccumulator:
-        """The live device-resident (n, k) slabs (no host transfer)."""
-        return self._ensure_state()
+        """The live device-resident (n, k) slabs (no host transfer; on a
+        mesh, the real rows gathered to every rank)."""
+        return self._backend.trim(self._ensure_state())
 
     def cluster(self, method: str = "affinity", *, target_clusters: int = 1,
                 max_rounds: int = 32, min_similarity: Optional[float] = None,
@@ -930,16 +1321,16 @@ class GraphBuilder:
         ``transfer_stats['cluster_label_*']``.  Returns (n,) int64 numpy
         labels, or (labels, info) with ``return_info``.
         """
-        from repro_torch.graph import cluster as cluster_lib
         state = self._ensure_state()
+        components, affinity = self._backend.cluster_programs()
         if method == "components":
-            labels, info = cluster_lib.connected_components_slabs(
-                state.nbr, n=self.n, max_rounds=max_rounds)
+            labels, info = components(state.nbr, n=self.n,
+                                      max_rounds=max_rounds)
         elif method == "affinity":
-            labels, info = cluster_lib.affinity_slabs(
-                state.nbr, state.w, n=self.n,
-                target_clusters=target_clusters, max_rounds=max_rounds,
-                min_similarity=min_similarity)
+            labels, info = affinity(state.nbr, state.w, n=self.n,
+                                    target_clusters=target_clusters,
+                                    max_rounds=max_rounds,
+                                    min_similarity=min_similarity)
         else:
             raise ValueError(f"unknown clustering method {method!r}; "
                              f"known: 'components', 'affinity'")
@@ -948,7 +1339,7 @@ class GraphBuilder:
     def row_versions(self) -> np.ndarray:
         """The (n,) int64 logical row versions (fetches only the int32
         version vector; not metered as a delta fetch)."""
-        ver = self._ensure_state().ver.cpu().numpy()
+        ver = self.slab_state().ver.cpu().numpy()
         return self._ver_base + ver.astype(np.int64)
 
     @property
@@ -1050,7 +1441,7 @@ class GraphBuilder:
                 nbr=None, w=None, ver=self._shipped_ver[:self.n].copy(),
                 base_seq=self._last_full_seq,
                 delta_chain=tuple(self._delta_log))
-        nbr, w, ver_dev = acc_lib.to_host(self._ensure_state())
+        nbr, w, ver_dev = acc_lib.to_host(self.slab_state())
         logical = self._ver_base + ver_dev.astype(np.int64)
         k = nbr.shape[1]
         self._ensure_shadow(self.n, k)
@@ -1067,9 +1458,11 @@ class GraphBuilder:
                 base: Optional[BuilderCheckpoint] = None,
                 device: DeviceLike = None,
                 learned_apply: Optional[Callable] = None,
-                measure: Optional[Measure] = None) -> "GraphBuilder":
+                measure: Optional[Measure] = None,
+                mesh=None) -> "GraphBuilder":
         """Resume a session from a checkpoint (same features and config),
-        on ``device`` (CUDA unless ``"cpu"``).
+        on ``device`` (CUDA unless ``"cpu"``) or on ``mesh`` (any rank
+        count: the checkpoint holds the (n, k) image).
 
         A delta checkpoint also needs ``base=``, the full checkpoint its
         chain starts from, and restores by replaying the chain onto that
@@ -1104,7 +1497,8 @@ class GraphBuilder:
         else:
             nbr, w, ver = ckpt.nbr, ckpt.w, ckpt.ver
         builder = cls(features, cfg, device=device,
-                      learned_apply=learned_apply, measure=measure)
+                      learned_apply=learned_apply, measure=measure,
+                      mesh=mesh)
         fp_now = builder._measure.fingerprint()
         if ckpt.measure_fingerprint != fp_now:
             raise ValueError(
@@ -1122,8 +1516,8 @@ class GraphBuilder:
         vbase = int(ver.min()) if ckpt.n else 0
         builder._ver_base = vbase
         builder._capacity = ckpt.capacity
-        builder._state = acc_lib.from_host(
-            nbr, w, (ver - vbase).astype(np.int32), device=builder.device)
+        builder._state = builder._backend.state_from_host(
+            nbr, w, (ver - vbase).astype(np.int32))
         builder._shadow_nbr = np.array(nbr, np.int32)
         builder._shadow_w = np.array(w, np.float32)
         builder._shipped_ver = ver.copy()
@@ -1149,5 +1543,5 @@ class GraphBuilder:
         """
         if delta:
             return self._emit_delta()
-        return acc_lib.to_graph(self._ensure_state(),
+        return acc_lib.to_graph(self.slab_state(),
                                 stats=self._roll_up_counters())

@@ -91,6 +91,35 @@ def window_layout(mode: str, n: int, window: int,
     return window - r, window_slot_count(mode, n, window)
 
 
+def shard_row_layout(mode: str, n: int, window: int,
+                     p: int) -> Tuple[int, int, int]:
+    """Static window-row partition of one repetition's grid over ``p`` ranks.
+
+    Rank ``i`` owns the striped global window rows ``i, i + p, ...``
+    (:func:`shard_row_permutation`): window occupancy is full rows, then
+    one partial row, then empty padding rows, so striping spreads the
+    light tail over the ranks (their real-row counts differ by at most 1).
+    Returns ``(n_windows, rows_per_rank, padded_slots)``: the real global
+    row count, ``ceil(n_windows / p)`` and ``p * rows_per_rank * W``
+    (rows past ``n_windows`` hold no point and score nothing).  Ownership
+    is decided in slot space, after the sorting-mode shift, so a window
+    whose members come from two ranks' sort output still has one owner.
+    """
+    if p < 1:
+        raise ValueError(f"shard count must be >= 1: {p}")
+    n_windows = window_slot_count(mode, n, window) // window
+    rows_per_rank = -(-n_windows // p)
+    return n_windows, rows_per_rank, p * rows_per_rank * window
+
+
+def shard_row_permutation(row, rows_per_rank: int, p: int):
+    """Physical row of global window row ``row`` under the striping: rank
+    ``row % p``, local row ``row // p``, so ``(row % p) * rows_per_rank +
+    row // p``; a bijection on ``[0, p * rows_per_rank)``, the identity at
+    ``p == 1``.  Elementwise on ints or integer tensors."""
+    return (row % p) * rows_per_rank + row // p
+
+
 def sort_keys(words: torch.Tensor, word_bits: int, tiebreak: torch.Tensor,
               tiebreak_bits: int) -> List[torch.Tensor]:
     """The lexicographic sort key of (word 0, ..., word M-1, tiebreak) as

@@ -43,7 +43,9 @@ _BIG = 2**31 - 1
 # (similarity/store.py): host-to-device page faults and their bytes
 # (faults x page bytes), pool re-uses, and the high-water resident pool
 # bytes (feature and measure-state pages together); ``embed_page_*`` the
-# measure-state pages' share of the traffic.
+# measure-state pages' share of the traffic.  ``all_to_all_*`` and the
+# other collective keys meter the mesh build's exchanges, this rank's
+# cross-rank share (:mod:`repro_torch.distributed.comm`).
 transfer_stats: Dict[str, int] = {"edge_fetches": 0, "bytes": 0,
                                   "checkpoint_fetches": 0,
                                   "checkpoint_bytes": 0,
@@ -57,7 +59,19 @@ transfer_stats: Dict[str, int] = {"edge_fetches": 0, "bytes": 0,
                                   "feature_page_peak_bytes": 0,
                                   "embed_page_bytes": 0,
                                   "embed_page_faults": 0,
-                                  "embed_page_hits": 0}
+                                  "embed_page_hits": 0,
+                                  "all_to_all_calls": 0,
+                                  "all_to_all_bytes": 0,
+                                  "all_to_all_count_calls": 0,
+                                  "all_to_all_count_bytes": 0,
+                                  "slot_scatter_calls": 0,
+                                  "slot_scatter_bytes": 0,
+                                  "reshard_calls": 0,
+                                  "reshard_bytes": 0,
+                                  "all_gather_calls": 0,
+                                  "all_gather_bytes": 0,
+                                  "all_reduce_calls": 0,
+                                  "all_reduce_bytes": 0}
 
 
 def reset_transfer_stats() -> None:
