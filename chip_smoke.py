@@ -54,6 +54,19 @@ Phases, one JSON line each; any failed check exits non-zero:
               repetitions over NCCL, 4 over gloo) and both clusterings
               of it, each equal slab for slab and label for label to
               the single-device build on rank 0's card.
+     e2e_mesh_store: the paged store and the learned measure on a mesh.
+              p = 1 through NCCL: e2e's build with feature_store='paged'
+              (one window_score launch a scoring chunk, one topk_merge a
+              repetition, no exchange for the fetch) against e2e's
+              slabs, counters and both clusterings; the learned measure
+              with embedding pair features (E = 32) on the Amazon2m-like
+              points at 2**20, bit for bit the single device's.  In the
+              same p > 1 ranks: the paged build at 2**20, the four
+              windowed sources' paged sessions (add, extend, refresh) at
+              20,000, the learned measure at 2**20 and at 20,000
+              (resident and paged), each against rank 0's single-device
+              build, and the learned build's payload bytes below a
+              cosine build's on the same points (the wire diet).
   5. e2e_lsh: LSH-Stars (Stars 1) on the first 2**19 points: SimHash
               M = 16, bucket cap W = 10,000, r = 25.
   6. e2e_prefilter: the default SortingLSH build with the 64-bit Hamming
@@ -1578,7 +1591,6 @@ def mesh_p1(torch, x, reference) -> tuple:
     from repro_torch import GraphBuilder, StarsConfig
     from repro_torch.distributed import Mesh
     from repro_torch.graph import accumulator as acc
-    from repro_torch.graph import cluster as cluster_lib
     torch.cuda.set_device(0)
     dist.init_process_group("nccl", init_method=mesh_rendezvous("p1"),
                             rank=0, world_size=1)
@@ -1632,13 +1644,9 @@ def mesh_p1(torch, x, reference) -> tuple:
         times["affinity_s"] = time.perf_counter() - t
         check(acc.transfer_stats["edge_fetches"] == 0,
               "e2e_mesh: clustering fetched edges")
-        t = time.perf_counter()
-        ref_cc, _ = cluster_lib.connected_components_slabs(ref_nbr, n=n)
-        times["components_single_device_s"] = time.perf_counter() - t
-        t = time.perf_counter()
-        ref_af, ref_info = cluster_lib.affinity_slabs(
-            ref_nbr, ref_w, n=n, target_clusters=SERVE_TARGET_CLUSTERS)
-        times["affinity_single_device_s"] = time.perf_counter() - t
+        ref_cc, ref_af, ref_info, ref_times = reference_labels(
+            torch, reference, n)
+        times.update(ref_times)
         check(np.array_equal(cc, ref_cc),
               "e2e_mesh: components labels differ from the single device's")
         check(np.array_equal(af, ref_af) and info == ref_info,
@@ -1666,17 +1674,41 @@ def mesh_layout(torch) -> tuple:
     return ("nccl", cards) if cards >= 2 else ("gloo", 2)
 
 
+def mesh_store_configs():
+    """name -> config of e2e_mesh_store's p > 1 paged sessions at
+    n = N_MESH_SOURCES: the four windowed sources of ``mesh_configs``
+    with feature_store='paged' and a pool of an eighth of the table."""
+    import dataclasses
+    pool = N_MESH_SOURCES * D_E2E * 4 // 8
+    return {name: dataclasses.replace(cfg, feature_store="paged",
+                                      feature_pool_bytes=pool)
+            for name, cfg in mesh_configs().items() if name != "prefilter"}
+
+
+def learned_embed_measure(torch):
+    """The two-tower model of e2e_learned with embedding pair features
+    (state-complete: the mesh ships its E = 32 embeddings)."""
+    return learned_measure(torch, pair_features="embed",
+                           use_set_features=False)
+
+
 def mesh_rank(rank: int, world: int, backend: str) -> int:
     """``chip_smoke.py --mesh-rank R W BACKEND``: rank R of W.  On p = W
     (and p = 2, a group of the first two ranks, when W > 2) every rank of
-    the group builds the five configs of ``mesh_configs`` at
-    N_MESH_SOURCES and the default build at N_E2E (MESH_E2E_REPS
+    the group builds, for e2e_mesh, the five configs of ``mesh_configs``
+    at N_MESH_SOURCES and the default build at N_E2E (MESH_E2E_REPS
     repetitions), then clusters the last (components, and affinity to
-    SERVE_TARGET_CLUSTERS); rank 0 holds each against the single-device
-    build on its card: the slabs bit for bit, the counters, the labels.
-    Each rank times its repetitions between barriers.  Writes
-    MESH_DIR/rank<R>.json."""
+    SERVE_TARGET_CLUSTERS); for e2e_mesh_store, the same build with the
+    paged store, the paged sessions of ``mesh_store_configs`` (add,
+    extend by an eighth, one refresh round), the learned measure with
+    embedding pair features at N_MEASURE (resident) and at
+    N_MESH_SOURCES (resident, paged, and a cosine build of the same
+    points for the wire diet).  Rank 0 holds each against the
+    single-device build on its card: the slabs bit for bit, the counters,
+    the labels.  Each rank times its repetitions between barriers.
+    Writes MESH_DIR/rank<R>.json."""
     import ctypes
+    import dataclasses
     import signal
     import numpy as np
     import torch
@@ -1695,37 +1727,60 @@ def mesh_rank(rank: int, world: int, backend: str) -> int:
     groups = {world: None}          # every rank takes part in every group
     if world > 2:
         groups[2] = dist.new_group([0, 1])
-    refs, rows, launches = {}, [], {}
+    refs, rows = {}, []
+    launches = {"e2e_mesh": {}, "e2e_mesh_store": {}}
 
-    def reference(name, x, cfg, reps):
-        if name not in refs:
-            b = GraphBuilder(x, cfg).add_reps(reps)
-            state = b.slab_state()
-            refs[name] = (state.nbr.clone(), state.w.clone(), b.stats)
-            del b, state
-        return refs[name]
+    def session(mesh, x, cfg, reps, measure=None, n0=None):
+        """A finished session on ``mesh`` (None: one device): ``reps``
+        repetitions, or with ``n0`` the first n0 points, an extend by the
+        rest and one refresh round."""
+        kw = {"mesh": mesh} if mesh is not None else {}
+        if n0 is None:
+            return GraphBuilder(x, cfg, measure=measure, **kw).add_reps(reps)
+        b = GraphBuilder(x[:n0], cfg, measure=measure, **kw).add_reps(reps)
+        b.extend(x[n0:], reps=reps)
+        return b.refresh_reps(1)
 
-    def build(name, p, mesh, group, x, cfg, reps):
+    def build(part, name, p, mesh, group, x, cfg, reps, ref=None,
+              ref_cfg=None, **kw):
+        """One build of ``part`` on the mesh; rank 0 holds it against
+        the single-device session of ``ref_cfg`` (``cfg`` by default),
+        kept under ``ref`` (``name``)."""
         acc.reset_transfer_stats()
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         dist.barrier(group=group)
         reset_launches()
         t = time.perf_counter()
-        b = GraphBuilder(x, cfg, mesh=mesh).add_reps(reps)
+        b = session(mesh, x, cfg, reps, **kw)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t
-        add_launches(launches, read_launches())
+        add_launches(launches[part], read_launches())
         dist.barrier(group=group)
         ts = dict(acc.transfer_stats)
         state, stats = b.slab_state(), b.stats
-        row = {"build": name, "p": p, "rank": rank, "n": x.shape[0],
-               "reps": reps, "seconds": secs, "seconds_per_rep": secs / reps,
+        row = {"part": part, "build": name, "p": p, "rank": rank,
+               "n": x.shape[0], "reps": reps, "seconds": secs,
+               "seconds_per_rep": secs / stats["reps"],
                "rank_scored_windows": b._backend.rank_scored_windows,
                "all_to_all_calls": ts["all_to_all_calls"],
                "all_to_all_bytes": ts["all_to_all_bytes"],
-               "comparisons": stats["comparisons"]}
+               "comparisons": stats["comparisons"],
+               "peak_device_bytes": torch.cuda.max_memory_allocated()}
+        if cfg.feature_store == "paged" or b._backend.stateful:
+            row.update({k: ts[k] for k in (
+                "feature_page_faults", "feature_page_bytes",
+                "feature_page_peak_bytes", "embed_page_faults",
+                "embed_page_bytes", "state_gather_bytes")},
+                host_syncs=b._backend.host_syncs)
         if rank == 0:
-            nbr, w, ref_stats = reference(name, x, cfg, reps)
+            key = ref or name
+            if key not in refs:
+                one = session(None, x, ref_cfg or cfg, reps, **kw)
+                s1 = one.slab_state()
+                refs[key] = (s1.nbr.clone(), s1.w.clone(), one.stats)
+                del one, s1
+            nbr, w, ref_stats = refs[key]
             row["slabs_equal"] = bool(torch.equal(state.nbr, nbr) and
                                       torch.equal(state.w.view(torch.int32),
                                                   w.view(torch.int32)))
@@ -1734,20 +1789,7 @@ def mesh_rank(rank: int, world: int, backend: str) -> int:
         del state
         return b, row
 
-    for p, group in sorted(groups.items()):
-        if rank >= p:
-            continue
-        mesh = Mesh.create(group, device=device)
-        x = clustered_points(torch, N_MESH_SOURCES, D_E2E, classes=1000,
-                             spread=0.05, seed=SEED + 3, device=device)
-        for name, cfg in mesh_configs().items():
-            b, row = build(name, p, mesh, group, x, cfg, cfg.r)
-            rows.append(row)
-            del b
-        x = clustered_points(torch, N_E2E, D_E2E, classes=1000, spread=0.05,
-                             seed=SEED, device=device)
-        b, row = build("e2e", p, mesh, group, x, StarsConfig(),
-                       MESH_E2E_REPS[backend])
+    def clusterings(b, row, x_n):
         reset_launches()
         t = time.perf_counter()
         cc = b.cluster("components")
@@ -1757,18 +1799,69 @@ def mesh_rank(rank: int, world: int, backend: str) -> int:
                              target_clusters=SERVE_TARGET_CLUSTERS)
         row["affinity_s"] = time.perf_counter() - t
         row["affinity_rounds"] = info["rounds"]
-        add_launches(launches, read_launches())
+        add_launches(launches["e2e_mesh"], read_launches())
         if rank == 0:
             nbr, w, _ = refs["e2e"]
-            n = x.shape[0]
-            ref_cc, _ = cluster_lib.connected_components_slabs(nbr, n=n)
+            ref_cc, _ = cluster_lib.connected_components_slabs(nbr, n=x_n)
             ref_af, ref_info = cluster_lib.affinity_slabs(
-                nbr, w, n=n, target_clusters=SERVE_TARGET_CLUSTERS)
+                nbr, w, n=x_n, target_clusters=SERVE_TARGET_CLUSTERS)
             row["components_equal"] = bool(np.array_equal(cc, ref_cc))
             row["affinity_equal"] = bool(np.array_equal(af, ref_af)
                                          and info == ref_info)
+
+    for p, group in sorted(groups.items()):
+        if rank >= p:
+            continue
+        mesh = Mesh.create(group, device=device)
+        x = clustered_points(torch, N_MESH_SOURCES, D_E2E, classes=1000,
+                             spread=0.05, seed=SEED + 3, device=device)
+        for name, cfg in mesh_configs().items():
+            b, row = build("e2e_mesh", name, p, mesh, group, x, cfg, cfg.r)
+            rows.append(row)
+            del b
+        n0 = N_MESH_SOURCES * 7 // 8
+        for name, cfg in mesh_store_configs().items():
+            b, row = build("e2e_mesh_store", f"paged-session-{name}", p,
+                           mesh, group, x, cfg, cfg.r, n0=n0,
+                           ref_cfg=dataclasses.replace(
+                               cfg, feature_store="resident"))
+            rows.append(row)
+            del b
+        del x
+        x = clustered_points(torch, N_E2E, D_E2E, classes=1000, spread=0.05,
+                             seed=SEED, device=device)
+        reps = MESH_E2E_REPS[backend]
+        b, row = build("e2e_mesh", "e2e", p, mesh, group, x, StarsConfig(),
+                       reps)
+        clusterings(b, row, x.shape[0])
         rows.append(row)
-        del b, x
+        del b
+        # the paged store: e2e's slabs (its clusterings at p = 1)
+        b, row = build("e2e_mesh_store", "e2e-paged", p, mesh, group, x,
+                       StarsConfig(feature_store="paged"), reps, ref="e2e")
+        rows.append(row)
+        del b
+        del x
+        torch.cuda.empty_cache()
+        meas = learned_embed_measure(torch)
+        learned = StarsConfig(measure="learned")
+        feats = products_points(torch, N_MESH_SOURCES).dense
+        for name, cfg, m in (
+                ("learned-20k", learned, meas),
+                ("learned-paged-20k", dataclasses.replace(
+                    learned, feature_store="paged"), meas),
+                ("cosine-20k", StarsConfig(), None)):
+            b, row = build("e2e_mesh_store", name, p, mesh, group, feats,
+                           cfg, MESH_SOURCE_R, measure=m,
+                           ref="learned-20k" if m is not None else None,
+                           ref_cfg=learned if m is not None else None)
+            rows.append(row)
+            del b
+        feats = products_points(torch, N_MEASURE).dense
+        b, row = build("e2e_mesh_store", "learned", p, mesh, group, feats,
+                       learned, reps, measure=meas)
+        rows.append(row)
+        del b, feats, meas
         torch.cuda.empty_cache()
     dist.destroy_process_group()
     (MESH_DIR / f"rank{rank}.json").write_text(
@@ -1778,10 +1871,11 @@ def mesh_rank(rank: int, world: int, backend: str) -> int:
 
 def mesh_ranks(torch) -> tuple:
     """The p > 1 part (``mesh_rank``) in W processes of
-    ``mesh_layout``: their launch counts summed, one row a p with every
-    rank's numbers; fails on a rank that fails, a build, counter or label
-    that differs from rank 0's single-device reference, or a build that
-    moved no bytes between the ranks."""
+    ``mesh_layout``: their launch counts summed by phase, and by phase
+    one row a p with every rank's numbers; fails on a rank that fails, a
+    build, counter or label that differs from rank 0's single-device
+    reference, a build that moved no bytes between the ranks, or a
+    learned build that moved as many as the cosine build on its points."""
     import atexit
     backend, world = mesh_layout(torch)
     mesh_rendezvous("ranks")
@@ -1809,50 +1903,248 @@ def mesh_ranks(torch) -> tuple:
     check(rcs == [0] * world, f"e2e_mesh: ranks ended {rcs}: {logs}")
     outs = [json.loads((MESH_DIR / f"rank{r}.json").read_text())
             for r in range(world)]
-    launches = {}
+    launches = {"e2e_mesh": {}, "e2e_mesh_store": {}}
     for out in outs:
-        add_launches(launches, out["launches"])
+        for part, counts in out["launches"].items():
+            add_launches(launches[part], counts)
     rows = [row for out in outs for row in out["rows"]]
     note = ("one rank a card over NCCL" if backend == "nccl" else
             "two ranks sharing one card over gloo; not a multi-GPU figure")
-    by_p = []
+    by_part = {"e2e_mesh": [], "e2e_mesh_store": []}
     for p in sorted({r["p"] for r in rows}):
-        builds = {}
-        for row in rows:
-            if row["p"] == p:
-                builds.setdefault(row["build"], []).append(row)
-        for name, ranks in builds.items():
-            first = ranks[0]
-            check(first["slabs_equal"] and first["stats_equal"]
-                  and first.get("components_equal", True)
-                  and first.get("affinity_equal", True),
-                  f"e2e_mesh p = {p}: {name} differs from the single-device "
-                  f"build: {first}")
-            check(all(r["comparisons"] == first["comparisons"]
-                      for r in ranks),
-                  f"e2e_mesh p = {p}: {name}: ranks disagree on the counts")
-            check(sum(r["all_to_all_bytes"] for r in ranks) > 0,
-                  f"e2e_mesh p = {p}: {name} moved no bytes between ranks")
-        by_p.append({"p": p, "backend": backend, "note": note,
-                     "builds": builds})
-    return launches, by_p, wall
+        for part, out in by_part.items():
+            builds = {}
+            for row in rows:
+                if row["p"] == p and row["part"] == part:
+                    builds.setdefault(row["build"], []).append(row)
+            for name, ranks in builds.items():
+                first = ranks[0]
+                check(first["slabs_equal"] and first["stats_equal"]
+                      and first.get("components_equal", True)
+                      and first.get("affinity_equal", True),
+                      f"{part} p = {p}: {name} differs from the "
+                      f"single-device build: {first}")
+                check(all(r["comparisons"] == first["comparisons"]
+                          for r in ranks),
+                      f"{part} p = {p}: {name}: ranks disagree on the "
+                      "counts")
+                check(sum(r["all_to_all_bytes"] for r in ranks) > 0,
+                      f"{part} p = {p}: {name} moved no bytes between "
+                      "ranks")
+            if part == "e2e_mesh_store":
+                wire = {name: sum(r["all_to_all_bytes"] for r in builds[name])
+                        for name in ("learned-20k", "cosine-20k")}
+                check(wire["learned-20k"] < wire["cosine-20k"],
+                      f"e2e_mesh_store p = {p}: the learned build moved "
+                      f"{wire} bytes: no wire diet")
+                gathers = [r["state_gather_bytes"]
+                           for r in builds["learned-paged-20k"]]
+                check(all(g > 0 for g in gathers),
+                      f"e2e_mesh_store p = {p}: state gathers {gathers}")
+            out.append({"p": p, "backend": backend, "note": note,
+                        "builds": builds})
+    return launches, by_part, wall
+
+
+def reference_labels(torch, reference, n) -> tuple:
+    """The single-device programs' components and affinity labels on
+    e2e's slabs (SERVE_TARGET_CLUSTERS), computed once."""
+    from repro_torch.graph import cluster as cluster_lib
+    if "labels" not in REFERENCE_LABELS:
+        nbr, w, _ = reference
+        times = {}
+        t = time.perf_counter()
+        cc, _ = cluster_lib.connected_components_slabs(nbr, n=n)
+        times["components_single_device_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        af, info = cluster_lib.affinity_slabs(
+            nbr, w, n=n, target_clusters=SERVE_TARGET_CLUSTERS)
+        times["affinity_single_device_s"] = time.perf_counter() - t
+        REFERENCE_LABELS["labels"] = (cc, af, info, times)
+    return REFERENCE_LABELS["labels"]
+
+
+REFERENCE_LABELS: dict = {}
+
+
+def mesh_store_p1(torch, x, reference) -> tuple:
+    """e2e_mesh_store at p = 1 through NCCL: the main path with
+    feature_store='paged' through ``mesh=`` against e2e's slabs, counters
+    and labels (window_score once a scoring chunk, one topk_merge a
+    repetition); then the learned measure with embedding pair features
+    on the Amazon2m-like points against the single-device build, bit for
+    bit.  Returns the launch counts of both and their rows."""
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch import GraphBuilder, StarsConfig
+    from repro_torch.core.windows import shard_row_layout
+    from repro_torch.distributed import Mesh
+    from repro_torch.graph import accumulator as acc
+    dist.init_process_group("nccl", init_method=mesh_rendezvous("p1store"),
+                            rank=0, world_size=1)
+    launches, rows = {}, []
+    try:
+        mesh = Mesh.create()
+        cfg = StarsConfig(feature_store="paged")
+        r, n = cfg.r, x.shape[0]
+        host = x.cpu()
+        acc.reset_transfer_stats()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t = time.perf_counter()
+        builder = GraphBuilder(host, cfg, mesh=mesh)
+        setup_s = time.perf_counter() - t
+        del host
+        rep_s = timed_reps(torch, builder, r)
+        add_launches(launches, read_launches())
+        backend = builder._backend
+        _, rps, _ = shard_row_layout(cfg.mode, n, cfg.window, 1)
+        chunks = -(-rps // backend._chunk_rows(rps))
+        rounds = r * chunks
+        for name, ok in {
+                "window_score": lambda c: c == rounds,
+                "window_score_by_design": lambda c: c == {"pipe": rounds,
+                                                          "tile": 0},
+                "topk_merge": lambda c: c == r,
+                "topk_merge_violations": lambda c: c == 0,
+                "leader_score": lambda c: c == 0,
+                "simhash_packed": lambda c: c == 0}.items():
+            check(ok(launches[name]),
+                  f"e2e_mesh_store: {name} launched {launches[name]}: "
+                  f"{launches}")
+        ts = dict(acc.transfer_stats)
+        check(ts["all_to_all_calls"] == 2 * r and ts["all_to_all_bytes"] == 0
+              and 0 < ts["feature_page_peak_bytes"] <= cfg.feature_pool_bytes
+              and backend.host_syncs == rounds,
+              f"e2e_mesh_store: exchanges and pages {ts}, "
+              f"{backend.host_syncs} host syncs")
+        ref_nbr, ref_w, ref_stats = reference
+        state = builder.slab_state()
+        check(torch.equal(state.nbr, ref_nbr) and torch.equal(
+            state.w.view(torch.int32), ref_w.view(torch.int32)),
+            "e2e_mesh_store: the paged mesh slabs differ from e2e's")
+        del state
+        stats = builder.stats
+        for key in ("comparisons", "emitted", "prefilter_ops",
+                    "scored_windows", "reps"):
+            check(stats[key] == ref_stats[key],
+                  f"e2e_mesh_store: {key} {stats[key]} against e2e's "
+                  f"{ref_stats[key]}")
+        cc_ref, af_ref, info_ref, _ = reference_labels(torch, reference, n)
+        t = time.perf_counter()
+        cc = builder.cluster("components")
+        components_s = time.perf_counter() - t
+        t = time.perf_counter()
+        af, info = builder.cluster("affinity", return_info=True,
+                                   target_clusters=SERVE_TARGET_CLUSTERS)
+        affinity_s = time.perf_counter() - t
+        check(np.array_equal(cc, cc_ref) and np.array_equal(af, af_ref)
+              and info == info_ref,
+              "e2e_mesh_store: the paged mesh's labels differ")
+        reps_s = sum(rep_s)
+        rows.append({
+            "build": "paged", "p": 1, "backend": mesh.backend, "n": n,
+            "r": r, "setup_seconds": setup_s, "seconds_per_rep": rep_s,
+            "reps_seconds": reps_s, "window_rows": rps,
+            "chunk_rows": backend._chunk_rows(rps), "chunks_per_rep": chunks,
+            "host_syncs": backend.host_syncs,
+            "faults_per_rep": ts["feature_page_faults"] / r,
+            "page_bytes_per_rep": ts["feature_page_bytes"] / r,
+            "peak_pool_bytes": ts["feature_page_peak_bytes"],
+            "all_to_all_calls": ts["all_to_all_calls"],
+            "h2d_gb_per_s": ts["feature_page_bytes"] / reps_s / 1e9,
+            "slabs_equal_e2e": True, "components_s": components_s,
+            "affinity_s": affinity_s,
+            "peak_device_bytes": torch.cuda.max_memory_allocated()})
+        del builder, backend
+        torch.cuda.empty_cache()
+
+        # the learned measure: the wire diet's path at p = 1
+        feats = products_points(torch, N_MEASURE).dense
+        meas = learned_embed_measure(torch)
+        cfg = StarsConfig(measure="learned")
+        runs, slabs = {}, {}
+        for name, kw in (("single", {}), ("mesh", {"mesh": mesh})):
+            acc.reset_transfer_stats()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            b = GraphBuilder(feats, cfg, measure=meas, **kw)
+            t = time.perf_counter()
+            b.add_reps(cfg.r)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+            counts = read_launches()
+            if name == "mesh":
+                add_launches(launches, counts)
+            state = b.slab_state()
+            slabs[name] = (state.nbr.clone(), state.w.clone(), b.stats)
+            runs[name] = {"reps_seconds": secs,
+                          "seconds_per_rep": secs / cfg.r,
+                          "all_to_all_bytes":
+                              acc.transfer_stats["all_to_all_bytes"],
+                          "launches": {k: counts[k] for k in (
+                              "topk_merge", "window_score",
+                              "leader_score")},
+                          "peak_device_bytes":
+                              torch.cuda.max_memory_allocated()}
+            del b, state
+        (a_nbr, a_w, a_stats), (b_nbr, b_w, b_stats) = (slabs["single"],
+                                                        slabs["mesh"])
+        equal = torch.equal(a_nbr, b_nbr) and torch.equal(
+            a_w.view(torch.int32), b_w.view(torch.int32))
+        check(equal, "e2e_mesh_store: the learned mesh slabs differ from "
+              "the single-device build's")
+        check(all(b_stats[k] == a_stats[k] for k in a_stats),
+              f"e2e_mesh_store: learned stats {b_stats} vs {a_stats}")
+        # pairs share a fold; the pair head scores outside the kernels
+        check(runs["mesh"]["all_to_all_bytes"] == 0
+              and runs["mesh"]["launches"] == {
+                  "topk_merge": cfg.r // 2 + cfg.r % 2, "window_score": 0,
+                  "leader_score": 0},
+              f"e2e_mesh_store: the learned mesh's exchanges or launches "
+              f"{runs}")
+        live = b_nbr >= 0
+        check(bool(live.any()) and bool(torch.isfinite(b_w[live]).all()),
+              "e2e_mesh_store: learned slabs empty or not finite")
+        rows.append({"build": "learned", "p": 1, "backend": mesh.backend,
+                     "n": N_MEASURE, "d": 100, "embed_dim": meas.state_width,
+                     "r": cfg.r, "comparisons": b_stats["comparisons"],
+                     "slabs_equal_single_device": equal, **runs})
+        del slabs, a_nbr, a_w, b_nbr, b_w, live, feats, meas
+        torch.cuda.empty_cache()
+        return launches, rows
+    finally:
+        dist.destroy_process_group()
 
 
 def phase_e2e_mesh(torch, x, reference) -> dict:
-    """The build on a mesh: (a) the main path at p = 1 through NCCL
-    against e2e's slabs, counters and clusterings; (b) p > 1 ranks
-    (``mesh_ranks``) against single-device builds.  Returns the launch
-    counts of both, the child ranks' included."""
+    """The build on a mesh: e2e_mesh (a) the main path at p = 1 through
+    NCCL against e2e's slabs, counters and clusterings; e2e_mesh_store
+    (a) the paged store and the learned measure at p = 1 (``mesh_store_p1``);
+    then (b) of both, p > 1 ranks (``mesh_ranks``) against single-device
+    builds.  Returns the launch counts of each phase by name, the child
+    ranks' included."""
     t = time.perf_counter()
     launches, row1 = mesh_p1(torch, x, reference)
     torch.cuda.empty_cache()
     emit({"phase": "e2e_mesh", **row1})
-    more, by_p, wall = mesh_ranks(torch)
-    for row in by_p:
-        emit({"phase": "e2e_mesh", **row})
+    t_store = time.perf_counter()
+    store_launches, store_rows = mesh_store_p1(torch, x, reference)
+    for row in store_rows:
+        emit({"phase": "e2e_mesh_store", **row})
+    store_s = time.perf_counter() - t_store
+    more, by_part, wall = mesh_ranks(torch)
+    for part, part_rows in by_part.items():
+        for row in part_rows:
+            emit({"phase": part, **row})
     emit({"phase": "e2e_mesh", "ranks_wall_seconds": wall,
+          "p1_store_seconds": store_s,
           "seconds": time.perf_counter() - t})
-    return add_launches(launches, more)
+    return {"e2e_mesh": add_launches(launches, more["e2e_mesh"]),
+            "e2e_mesh_store": add_launches(store_launches,
+                                           more["e2e_mesh_store"])}
 
 
 def builder_windows(cfg, n) -> int:
@@ -3964,7 +4256,7 @@ def main() -> int:
     by_path = {}
     by_path["e2e"], reference = phase_e2e(torch, x)
     by_path["e2e_paged"] = phase_e2e_paged(torch, x, reference)
-    by_path["e2e_mesh"] = phase_e2e_mesh(torch, x, reference)
+    by_path.update(phase_e2e_mesh(torch, x, reference))
     del reference
     by_path.update({"e2e_lsh": phase_e2e_lsh(torch, x[:N_LSH]),
                     "e2e_prefilter": phase_e2e_prefilter(torch, x),

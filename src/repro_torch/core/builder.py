@@ -42,12 +42,14 @@ host.
 
 ``mesh=`` (a :class:`repro_torch.distributed.Mesh` over a
 ``torch.distributed`` group, one rank a process) runs the build over the
-ranks (:class:`_MeshBackend`, :mod:`repro_torch.distributed`): resident
-dense features, the four windowed sources, cosine or dot, with or
-without the prefilter; extend, refresh, checkpoints restored across rank
-counts, and both clusterings on the row-sharded slabs.  Not ported yet
-on a mesh (they raise, naming the argument): the paged store, the
-learned measure's embedding fetch, the pair cache, the exact sweep.
+ranks (:class:`_MeshBackend`, :mod:`repro_torch.distributed`): dense
+features, resident or paged, the four windowed sources, cosine or dot
+(the prefilter on the resident store) or a state-complete learned
+measure, which ships embeddings instead of features; extend, refresh,
+checkpoints restored across rank counts, and both clusterings on the
+row-sharded slabs.  Refused on a mesh (naming the argument): the pair
+cache, the exact sweep, the set measures, a learned measure that needs
+raw features or the prefilter, the paged store with the prefilter.
 """
 
 from __future__ import annotations
@@ -339,23 +341,29 @@ def _padded_ids(lo: int, hi: int, count: int, n: int) -> np.ndarray:
 
 
 def _stream_sketch_words(store: PagedFeatureStore, cfg: StarsConfig,
-                         rep_seed: int) -> torch.Tensor:
-    """One repetition's (n, M) sketch words, streamed through a paged
-    store in row chunks of the pool's size (each padded to one shape with
-    -1 sentinels, which read zero rows and are dropped).
+                         rep_seed: int, lo: int = 0,
+                         hi: Optional[int] = None) -> torch.Tensor:
+    """One repetition's sketch words of table rows ``lo .. hi - 1`` (all
+    rows by default), streamed through a paged store in row chunks of the
+    pool's size (each padded to one shape with -1 sentinels, which read
+    zero rows and are dropped).  Rows at or past ``store.n`` (a mesh
+    rank's pad rows) read zero rows too.
 
     Equal to the one-shot sketch of the resident table: the SimHash
     product is a row's own (float64, so its sign does not depend on the
     chunk's shape).  Only one chunk of features is on the device at a
     time; the words are an O(n) summary outside the feature budget.
     """
-    n = store.n
-    chunk = max(store.page_rows, min(store.pool_pages * store.page_rows, n))
+    hi = store.n if hi is None else hi
+    count = hi - lo
+    chunk = max(store.page_rows, min(store.pool_pages * store.page_rows,
+                                     count))
     parts = []
-    for c0 in range(0, n, chunk):
-        rows = store.gather(_padded_ids(c0, min(c0 + chunk, n), chunk, n))
+    for c0 in range(lo, max(hi, lo + 1), chunk):
+        rows = store.gather(_padded_ids(c0, min(c0 + chunk, hi), chunk,
+                                        store.n))
         parts.append(lsh_lib.sketch(rows, cfg.family, rep_seed=rep_seed))
-    return torch.cat(parts)[:n]
+    return torch.cat(parts)[:count]
 
 
 def _stream_embed_rows(store: PagedFeatureStore, measure: Measure,
@@ -375,6 +383,78 @@ def _stream_embed_rows(store: PagedFeatureStore, measure: Measure,
                                         hi))
         parts.append(measure.precompute(rows).cpu())
     return torch.cat(parts)[:count]
+
+
+def _pool_chunk_rows(store: PagedFeatureStore, cfg: StarsConfig, width: int,
+                     nw: int) -> int:
+    """Window rows a scoring chunk over a paged store: the most whose
+    gathered (C x window, ``width``) block fits the pool's budget."""
+    itemsize = torch.empty((), dtype=store.dtype).element_size()
+    row_bytes = cfg.window * width * itemsize
+    return int(max(1, min(nw, store.pool_bytes // max(row_bytes, 1))))
+
+
+def _paged_chunks(cfg: StarsConfig, store: PagedFeatureStore,
+                  measure: Measure, win: win_lib.Windows, rep_index: int,
+                  c_rows: int, *, new_from: int, refresh_below: int,
+                  refresh_fraction: float, refresh_probs,
+                  feature_rows: bool = True, row0: int = 0, stride: int = 1,
+                  total_rows: Optional[int] = None):
+    """Score window rows ``win`` (global rows ``row0 + stride * [0, nw)``
+    of a ``total_rows`` grid) through a paged store, ``c_rows`` rows a
+    chunk; yields each chunk's ``_score_windows`` output.
+
+    A chunk's gids cross to the host (one sync a chunk) to drive the
+    store's gather of its member rows (``feature_rows``) and, for a
+    stateful measure, of their state rows; the chunk goes through
+    ``_score_windows``' row-subset mode with slot ids into the gathered
+    block.  The last chunk is padded with empty rows (gid -1, not valid),
+    which read zero rows and lie past the grid, so they never score.
+    """
+    _, _, k_lead, k_refresh = _rep_keys(cfg, rep_index)
+    nw, w_sz = win.gid.shape
+    dev = win.gid.device
+    pad = (-nw) % c_rows
+
+    def padded(t, fill):
+        return torch.cat([t, t.new_full((pad, w_sz), fill)])
+
+    gid = padded(win.gid, -1)
+    valid = padded(win.valid, False)
+    bucket = padded(win.bucket, win_lib.PAD_BUCKET)
+    if refresh_below > 0 and refresh_probs is not None:
+        refresh_probs = as_tensor(refresh_probs, device=dev,
+                                  dtype=torch.float32)
+    member_index = torch.arange(c_rows * w_sz, device=dev).reshape(
+        c_rows, w_sz)
+    stateful = measure.state_width is not None
+    for c0 in range(0, nw, c_rows):
+        gid_c = gid[c0:c0 + c_rows]
+        gid_np = gid_c.cpu().numpy()
+        feats = (PointFeatures(dense=store.gather(gid_np).dense.reshape(
+            c_rows * w_sz, -1)) if feature_rows else None)
+        mstate = (store.gather_state(gid_np).reshape(c_rows * w_sz, -1)
+                  if stateful else None)
+        yield _score_windows(
+            cfg, feats, None,
+            win_lib.Windows(gid=gid_c, valid=valid[c0:c0 + c_rows],
+                            bucket=bucket[c0:c0 + c_rows]),
+            k_lead, new_from=new_from, refresh_below=refresh_below,
+            refresh_fraction=refresh_fraction, k_refresh=k_refresh,
+            refresh_probs=refresh_probs, measure=measure, state=mstate,
+            row_offset=row0 + stride * c0, total_rows=total_rows,
+            stride=stride, member_index=member_index)
+
+
+def _chunk_counters(outs) -> Dict:
+    """The counters of a repetition's scoring chunks, joined: per-window
+    tensors concatenated, counts summed."""
+    counters = {}
+    for key in _COUNTERS:
+        vals = [o[key] for o in outs]
+        counters[key] = (torch.cat([v.reshape(-1) for v in vals])
+                         if isinstance(vals[0], torch.Tensor) else sum(vals))
+    return counters
 
 
 class _PagedBackend(_Backend):
@@ -446,11 +526,9 @@ class _PagedBackend(_Backend):
     def _chunk_rows(self, nw: int) -> int:
         """Window rows a scoring chunk: the most whose gathered (C x
         window, d [+ state width]) block fits the pool's budget."""
-        width = self.store.d + (self.measure.state_width or 0)
-        itemsize = torch.empty((), dtype=self.store.dtype).element_size()
-        row_bytes = self.cfg.window * width * itemsize
-        return int(max(1, min(nw, self.store.pool_bytes // max(row_bytes,
-                                                               1))))
+        return _pool_chunk_rows(
+            self.store, self.cfg,
+            self.store.d + (self.measure.state_width or 0), nw)
 
     def run_round(self, state, rep_index: int, new_from: int,
                   refresh_below: int = 0, refresh_fraction: float = 1.0,
@@ -460,56 +538,23 @@ class _PagedBackend(_Backend):
                 self.store, new_from, refresh_below)(state, rep_index)
             return state, counters
         cfg, store = self.cfg, self.store
-        dev = store.device
-        k_tie, k_shift, k_lead, k_refresh = _rep_keys(cfg, rep_index)
+        k_tie, k_shift, _, _ = _rep_keys(cfg, rep_index)
         words = _stream_sketch_words(store, cfg, _rep_seed(cfg, rep_index))
         win = _rep_window_grid(cfg, words, k_tie, k_shift)
         del words
-        nw, w_sz = win.gid.shape
-        c_rows = self._chunk_rows(nw)
-        pad = (-nw) % c_rows
-
-        def padded(t, fill):
-            return torch.cat([t, t.new_full((pad, w_sz), fill)])
-
-        gid = padded(win.gid, -1)
-        valid = padded(win.valid, False)
-        bucket = padded(win.bucket, win_lib.PAD_BUCKET)
-        probs = None
-        if refresh_below > 0:
-            probs = as_tensor(
-                np.full(nw, refresh_fraction, np.float32)
-                if refresh_probs is None else refresh_probs,
-                device=dev, dtype=torch.float32)
-        member_index = torch.arange(c_rows * w_sz, device=dev).reshape(
-            c_rows, w_sz)
-        stateful = self.measure.state_width is not None
+        nw = win.gid.shape[0]
         per_chunk = []
-        for c0 in range(0, nw, c_rows):
-            gid_c = gid[c0:c0 + c_rows]
-            gid_np = gid_c.cpu().numpy()
+        for out in _paged_chunks(
+                cfg, store, self.measure, win, rep_index,
+                self._chunk_rows(nw), new_from=new_from,
+                refresh_below=refresh_below,
+                refresh_fraction=refresh_fraction,
+                refresh_probs=refresh_probs, total_rows=nw):
             self.host_syncs += 1
-            block = store.gather(gid_np).dense.reshape(c_rows * w_sz, -1)
-            mstate = (store.gather_state(gid_np).reshape(c_rows * w_sz, -1)
-                      if stateful else None)
-            out = _score_windows(
-                cfg, PointFeatures(dense=block), None,
-                win_lib.Windows(gid=gid_c, valid=valid[c0:c0 + c_rows],
-                                bucket=bucket[c0:c0 + c_rows]),
-                k_lead, new_from=new_from, refresh_below=refresh_below,
-                refresh_fraction=refresh_fraction, k_refresh=k_refresh,
-                refresh_probs=probs, measure=self.measure, state=mstate,
-                row_offset=c0, total_rows=nw, member_index=member_index)
             state = acc_lib.accumulate(state, out["src"], out["dst"],
                                        out["w"], out["emit"])
             per_chunk.append({k: out[k] for k in _COUNTERS})
-        counters = {}
-        for key in _COUNTERS:
-            vals = [c[key] for c in per_chunk]
-            counters[key] = (torch.cat([v.reshape(-1) for v in vals])
-                             if isinstance(vals[0], torch.Tensor)
-                             else sum(vals))
-        return state, counters
+        return state, _chunk_counters(per_chunk)
 
     def extend(self, new_features: PointFeatures) -> None:
         self.store.append(new_features)
@@ -580,8 +625,27 @@ class _MeshBackend(_Backend):
     are the global totals on every rank; ``rank_scored_windows`` keeps
     this rank's scored window rows.
 
-    Not ported yet (they raise from ``GraphBuilder``): the paged store
-    and a learned measure on a mesh.
+    ``cfg.feature_store='paged'``: every rank keeps a
+    :class:`PagedFeatureStore` over the whole host table (its own pinned
+    copy) and no device feature table.  It sketches its row block
+    streamed through its store (:func:`_stream_sketch_words`), and its
+    store serves the member rows of its window slots, a chunk of window
+    rows at a time (:func:`_paged_chunks`, the single-device paged walk):
+    no fetch exchange, page traffic under ``feature_page_*``.  The
+    chunks' candidate streams go out in one emit a repetition, and
+    rounds are not paired (there is no fetch to share), so row versions
+    move once a repetition.
+
+    A learned measure (state-complete: its tiles need the tower
+    embeddings only) ships E-float embeddings instead of d-float
+    features, the embedding wire diet.  Resident: each rank embeds its
+    own rows (``measure.precompute``) into its (n_pad / p, E) state
+    block, which is the fetch table; an ``extend`` moves the old state
+    rows to their new owners and embeds only the new rows (old rows are
+    never re-embedded).  Paged: each rank stream-embeds its rows through
+    its store, one all-gather (metered as ``state_gather_*``) lands the
+    whole (n, E) table in every rank's host store, and the scoring
+    chunks page state rows in under ``embed_page_*``.
     """
 
     pairs_rounds = True
@@ -593,11 +657,24 @@ class _MeshBackend(_Backend):
             raise NotImplementedError(
                 f"the mesh backend runs the windowed repetition sources "
                 f"{windowed}, got {cfg.source_name!r}")
-        if cfg.measure not in ("cosine", "dot"):
+        if cfg.measure not in ("cosine", "dot", "learned"):
             raise NotImplementedError(
-                f"StarsConfig.measure={cfg.measure!r} on a mesh: the port's "
-                "mesh scores cosine and dot (the learned measure's "
-                "embedding fetch on a mesh is not ported yet)")
+                f"StarsConfig.measure={cfg.measure!r} on a mesh: the mesh "
+                "scores cosine, dot or a state-complete learned measure")
+        if cfg.measure == "learned":
+            if not measure.state_complete:
+                raise NotImplementedError(
+                    "measure='learned' on a mesh ships tower embeddings "
+                    "instead of feature rows, so the measure must be "
+                    "state-complete (a LearnedMeasure with "
+                    "TwoTowerConfig.pair_features 'embed' or 'none'); "
+                    "pair_features='raw' or a learned_apply= closure needs "
+                    "the raw feature rows at every tile")
+            if cfg.hamming_prefilter_bits > 0:
+                raise NotImplementedError(
+                    "measure='learned' on a mesh does not combine with "
+                    "hamming_prefilter_bits > 0: the prefilter words ride "
+                    "the feature fetch that the embedding fetch replaces")
         self.cfg = cfg
         self.mesh = mesh
         self.p = mesh.size
@@ -608,10 +685,19 @@ class _MeshBackend(_Backend):
                 "the mesh backend needs dense features: the features= "
                 "argument carries no dense block")
         self._n = int(dense.shape[0])
-        self._place_features(self._block(dense, self._n))
+        self._paged = cfg.feature_store == "paged"
+        # a paged mesh's fetch is no exchange: nothing for a pair to share
+        self.pairs_rounds = not self._paged
+        if self._paged:
+            self.store = as_feature_store(dense, cfg, self.device)
+        else:
+            self._place_features(self._block(dense, self._n))
         self._slab_n = self._n          # the n the slab layout was made for
         self.rank_scored_windows = 0
+        self.host_syncs = 0             # paged: chunk gids copied to host
         self._tables: Dict = {}         # n -> the fetch table block
+        self._state_tab: Optional[torch.Tensor] = None   # resident learned
+        self._embedded = 0              # rows whose measure state is current
 
     @property
     def n(self) -> int:
@@ -620,6 +706,10 @@ class _MeshBackend(_Backend):
     @property
     def device(self) -> torch.device:
         return self.mesh.device
+
+    @property
+    def stateful(self) -> bool:
+        return self.measure.state_width is not None
 
     def _rows(self, n: int) -> int:
         """Rows a rank of the padded layout for ``n`` points."""
@@ -683,19 +773,67 @@ class _MeshBackend(_Backend):
             w=comm.all_gather_rows(self.mesh, state.w)[:n],
             ver=comm.all_gather_rows(self.mesh, state.ver)[:n])
 
-    def ensure_measure_state(self) -> int:
-        return 0                        # cosine / dot keep no state
-
     def cluster_programs(self):
         return (functools.partial(cluster_dist.connected_components_mesh,
                                   mesh=self.mesh),
                 functools.partial(cluster_dist.affinity_mesh, mesh=self.mesh))
 
+    # -- measure state (the learned measure's embeddings) --------------- #
+    def ensure_measure_state(self) -> int:
+        """Embed the rows not yet embedded (all of them first, then an
+        extend's tail), each rank its own: into its state block
+        (resident), or streamed through its store and all-gathered into
+        every rank's host store (paged).  Returns how many rows the mesh
+        embedded (0 for a stateless measure)."""
+        if not self.stateful:
+            return 0
+        n, done = self._n, self._embedded
+        if n <= done:
+            return 0
+        size = self._rows(n)
+        lo = self.mesh.rank * size
+        a = max(lo, done)
+        b = max(a, min(lo + size, n))       # this rank's new rows [a, b)
+        if self._paged:
+            self._gather_state_rows(done, a, b)
+        else:
+            rows = self.measure.precompute(PointFeatures(
+                dense=self.store.features.dense[a - lo:b - lo]))
+            if self._state_tab is None:
+                self._state_tab = rows.new_zeros((size, rows.shape[1]))
+            self._state_tab[a - lo:b - lo] = rows
+        self._embedded = n
+        return n - done
+
+    def _gather_state_rows(self, done: int, a: int, b: int) -> None:
+        """Paged: stream-embed this rank's new rows ``[a, b)``, gather
+        every rank's (one all-gather of equal blocks, metered as
+        ``state_gather_*``) and land rows ``[done, n)`` in the host
+        store."""
+        n, size = self._n, self._rows(self._n)
+        width = self.measure.state_width
+        new = [max(0, min((q + 1) * size, n) - max(q * size, done))
+               for q in range(self.p)]
+        rows = (_stream_embed_rows(self.store, self.measure, a, b) if b > a
+                else torch.zeros((0, width)))
+        block = torch.zeros((max(new), width), dtype=rows.dtype,
+                            device=self.device)
+        block[:b - a] = rows.to(self.device)
+        parts = comm.all_gather(self.mesh, block, kind="state_gather")
+        table = torch.cat([t[:m] for t, m in zip(parts, new)]).cpu()
+        if done == 0:
+            self.store.attach_state(table)
+        else:
+            self.store.append_state(table)
+
     # -- one repetition ------------------------------------------------- #
     def _fetch_table(self) -> torch.Tensor:
-        """This rank's block of the table the fetch serves: the features,
-        with the packed prefilter words beside them as float32 bit
-        patterns when the prefilter is armed (one exchange for both)."""
+        """This rank's block of the table the fetch serves: a learned
+        measure's embeddings (the wire diet), or the features with the
+        packed prefilter words beside them as float32 bit patterns when
+        the prefilter is armed (one exchange for both)."""
+        if self.stateful:
+            return self._state_tab
         if self._n not in self._tables:
             dense = self.store.features.dense
             table = dense
@@ -711,10 +849,15 @@ class _MeshBackend(_Backend):
     def _sort_round(self, rep_index: int):
         """Sketch and sample-sort one repetition -> this rank's slots."""
         cfg, n = self.cfg, self._n
-        words = lsh_lib.sketch(self.store.features, cfg.family,
-                               rep_seed=_rep_seed(cfg, rep_index))
-        keys, gids = _sketch_keys(cfg, n, words, rep_index,
-                                  self.mesh.rank * self._rows(n))
+        gid0 = self.mesh.rank * self._rows(n)
+        seed = _rep_seed(cfg, rep_index)
+        if self._paged:
+            words = _stream_sketch_words(self.store, cfg, seed, gid0,
+                                         gid0 + self._rows(n))
+        else:
+            words = lsh_lib.sketch(self.store.features, cfg.family,
+                                   rep_seed=seed)
+        keys, gids = _sketch_keys(cfg, n, words, rep_index, gid0)
         k_shift = _rep_keys(cfg, rep_index)[1]
         offset, _ = win_lib.window_layout(cfg.mode, n, cfg.window, k_shift)
         _, _, total_slots = win_lib.shard_row_layout(cfg.mode, n, cfg.window,
@@ -726,29 +869,68 @@ class _MeshBackend(_Backend):
             payload_bits=int(n).bit_length(), window=cfg.window)
         return gid, bucket
 
+    def _windows(self, gid, bucket) -> win_lib.Windows:
+        """This rank's (rows_per_rank, W) window rows from its slots."""
+        w = self.cfg.window
+        gid = gid.reshape(-1, w)
+        return win_lib.Windows(gid=gid, valid=gid >= 0,
+                               bucket=bucket.reshape(-1, w))
+
     def _score(self, rep_index: int, gid, bucket, rows, new_from: int,
                refresh_below: int, refresh_fraction: float, probs):
-        """Score this rank's striped window rows from the fetched rows."""
+        """Score this rank's striped window rows from the fetched rows
+        (a learned measure's fetched rows are its state rows)."""
         cfg = self.cfg
-        w = cfg.window
-        nw, rps, _ = win_lib.shard_row_layout(cfg.mode, self._n, w, self.p)
-        d = self.store.features.dense.shape[1]
-        gid = gid.reshape(rps, w)
-        win = win_lib.Windows(gid=gid, valid=gid >= 0,
-                              bucket=bucket.reshape(rps, w))
-        pref = (from_wire(rows[:, d:].view(torch.int32))
-                if cfg.hamming_prefilter_bits > 0 else None)
+        nw, _, _ = win_lib.shard_row_layout(cfg.mode, self._n, cfg.window,
+                                            self.p)
+        win = self._windows(gid, bucket)
+        if self.stateful:
+            feats, mstate, pref = None, rows, None
+        else:
+            d = self.store.features.dense.shape[1]
+            feats, mstate = PointFeatures(dense=rows[:, :d]), None
+            pref = (from_wire(rows[:, d:].view(torch.int32))
+                    if cfg.hamming_prefilter_bits > 0 else None)
         _, _, k_lead, k_refresh = _rep_keys(cfg, rep_index)
         out = _score_windows(
-            cfg, PointFeatures(dense=rows[:, :d]), pref, win, k_lead,
+            cfg, feats, pref, win, k_lead,
             new_from=new_from, refresh_below=refresh_below,
             refresh_fraction=refresh_fraction, k_refresh=k_refresh,
-            refresh_probs=probs, measure=self.measure,
+            refresh_probs=probs, measure=self.measure, state=mstate,
             row_offset=self.mesh.rank, total_rows=nw, stride=self.p,
-            member_index=torch.arange(rps * w, device=self.device)
-            .reshape(rps, w))
+            member_index=torch.arange(win.gid.numel(), device=self.device)
+            .reshape(win.gid.shape))
         self.rank_scored_windows += out["scored_windows"]
         return out
+
+    def _chunk_rows(self, rows: int) -> int:
+        """Paged: window rows a scoring chunk, the most whose member block
+        (features, or a learned measure's state rows) fits the pool."""
+        width = self.measure.state_width if self.stateful else self.store.d
+        return _pool_chunk_rows(self.store, self.cfg, width, rows)
+
+    def _score_paged(self, rep_index: int, gid, bucket, new_from: int,
+                     refresh_below: int, refresh_fraction: float, probs):
+        """Paged: score this rank's window rows in pool-sized chunks
+        served by its store (:func:`_paged_chunks`); returns the chunks'
+        candidate streams and counters."""
+        cfg = self.cfg
+        nw, _, _ = win_lib.shard_row_layout(cfg.mode, self._n, cfg.window,
+                                            self.p)
+        win = self._windows(gid, bucket)
+        outs = []
+        for out in _paged_chunks(
+                cfg, self.store, self.measure, win, rep_index,
+                self._chunk_rows(win.gid.shape[0]), new_from=new_from,
+                refresh_below=refresh_below,
+                refresh_fraction=refresh_fraction, refresh_probs=probs,
+                feature_rows=not self.stateful, row0=self.mesh.rank,
+                stride=self.p, total_rows=nw):
+            self.host_syncs += 1
+            outs.append({k: out[k] for k in ("src", "dst", "w", "emit")
+                         + _COUNTERS})
+        self.rank_scored_windows += sum(o["scored_windows"] for o in outs)
+        return outs
 
     def _counters(self, outs) -> List[Dict]:
         """Each round's counters summed over the ranks (one all-reduce)."""
@@ -767,13 +949,23 @@ class _MeshBackend(_Backend):
                   refresh_below: int = 0, refresh_fraction: float = 1.0,
                   refresh_probs: Optional[np.ndarray] = None):
         gid, bucket = self._sort_round(rep_index)
-        rows, _, _ = fetch_rows_all_to_all(self._fetch_table(), gid,
-                                           mesh=self.mesh)
-        out = self._score(rep_index, gid, bucket, rows, new_from,
-                          refresh_below, refresh_fraction, refresh_probs)
+        if self._paged:
+            outs = self._score_paged(rep_index, gid, bucket, new_from,
+                                     refresh_below, refresh_fraction,
+                                     refresh_probs)
+            # the chunks' streams go out in one emit exchange
+            streams = [[o[k] for o in outs] for k in ("src", "dst", "w",
+                                                      "emit")]
+            out = _chunk_counters(outs)
+        else:
+            rows, _, _ = fetch_rows_all_to_all(self._fetch_table(), gid,
+                                               mesh=self.mesh)
+            out = self._score(rep_index, gid, bucket, rows, new_from,
+                              refresh_below, refresh_fraction, refresh_probs)
+            streams = [out[k] for k in ("src", "dst", "w", "emit")]
         state, _ = accumulate_all_to_all(
-            state, out["src"], out["dst"], out["w"], out["emit"],
-            mesh=self.mesh, exact_weights=self.cfg.exact_weights)
+            state, *streams, mesh=self.mesh,
+            exact_weights=self.cfg.exact_weights)
         return state, self._counters([out])[0]
 
     def run_round_pair(self, state, rep_index: int, new_from: int,
@@ -800,16 +992,24 @@ class _MeshBackend(_Backend):
         return state, counters_a, counters_b
 
     def extend(self, new_features: PointFeatures) -> None:
-        """Pad and reshard: the old rows go to their owners in the layout
-        for the new n (``comm.reshard_rows``), and this rank copies its
-        share of the new rows."""
-        new = _dense_source(new_features)
+        """Pad and reshard: the old rows (features, and a resident learned
+        measure's state rows) go to their owners in the layout for the
+        new n (``comm.reshard_rows``), and this rank copies its share of
+        the new rows.  Paged: every rank appends them to its store."""
         n_old = self._n
+        if self._paged:
+            self.store.append(new_features)
+            self._n = self.store.n
+            return
+        new = _dense_source(new_features)
         self._n += int(new.shape[0])
         block = comm.reshard_rows(self.mesh, self.store.features.dense,
                                   n_old, self._n, 0)
         self._place_features(self._block(new, self._n, base=n_old,
                                          out=block))
+        if self._state_tab is not None:
+            self._state_tab = comm.reshard_rows(self.mesh, self._state_tab,
+                                                n_old, self._n, 0)
 
 
 def _check_mesh_args(features, cfg: StarsConfig, mesh,
@@ -821,11 +1021,20 @@ def _check_mesh_args(features, cfg: StarsConfig, mesh,
         raise ValueError(
             f"device={device!r} with mesh=: the session runs on the mesh's "
             f"device {mesh.device}")
-    if isinstance(features, FeatureStore) or cfg.feature_store != "resident":
+    if isinstance(features, FeatureStore):
         raise NotImplementedError(
-            "mesh= takes resident dense features: a FeatureStore or "
-            f"StarsConfig.feature_store={cfg.feature_store!r} (the paged "
-            "store on a mesh) is not ported yet")
+            "mesh= takes the raw dense features (every rank the same full "
+            "table), not a FeatureStore: StarsConfig.feature_store picks "
+            "each rank's store")
+    if cfg.feature_store not in ("resident", "paged"):
+        raise ValueError(f"unknown feature store {cfg.feature_store!r}; "
+                         "supported: 'resident', 'paged'")
+    if cfg.feature_store == "paged" and cfg.hamming_prefilter_bits > 0:
+        raise NotImplementedError(
+            "feature_store='paged' on a mesh does not support the Hamming "
+            "prefilter (hamming_prefilter_bits > 0: its packed words would "
+            "need their own paging); unset it or use feature_store="
+            "'resident'")
     if isinstance(features, PointFeatures) and features.dense is None:
         raise ValueError(
             "mesh= needs dense features: the features= argument carries no "
@@ -952,8 +1161,11 @@ class GraphBuilder:
                 over its ranks, one process each, every rank calling with
                 the same full features and keeping its row block
                 (:class:`_MeshBackend`); the session runs on the mesh's
-                device.  Resident dense features, the four windowed
-                sources, cosine or dot, with or without the prefilter.
+                device.  Dense features, resident or paged
+                (``cfg.feature_store``: each rank a host store of the
+                whole table), the four windowed sources, cosine or dot
+                (with the prefilter on the resident store), or a
+                state-complete learned measure (``measure=``).
     """
 
     # Per-round counters stay on the device and are summed to host ints
@@ -1043,7 +1255,7 @@ class GraphBuilder:
     @property
     def feature_store(self) -> FeatureStore:
         """The session's FeatureStore (resident or paged; on a mesh, this
-        rank's row block)."""
+        rank's row block, or its paged store of the whole table)."""
         return self._backend.store
 
     @property

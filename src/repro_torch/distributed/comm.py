@@ -28,7 +28,9 @@ leaves it, so every byte count is exactly 0 at p = 1):
     the padded row layout changes (:func:`reshard_rows`);
   * ``all_gather_calls`` / ``_bytes`` and ``all_reduce_calls`` /
     ``_bytes``: splitter samples, rank counts, round counters and the
-    slab gathers of ``finalize`` / ``checkpoint``.
+    slab gathers of ``finalize`` / ``checkpoint``;
+  * ``state_gather_calls`` / ``_bytes``: on a paged mesh, the all-gather
+    of a learned measure's embeddings into every rank's host store.
 
 The process group's backend decides the transport: NCCL carries CUDA
 tensors, gloo CPU tensors (the tests) and, through its own staging,
@@ -193,12 +195,14 @@ def reshard_rows(mesh: Mesh, block: torch.Tensor, n_old: int, n_new: int,
     return out
 
 
-def all_gather(mesh: Mesh, t: torch.Tensor) -> List[torch.Tensor]:
-    """Every rank's ``t`` (same shape on every rank), in rank order."""
+def all_gather(mesh: Mesh, t: torch.Tensor, *,
+               kind: str = "all_gather") -> List[torch.Tensor]:
+    """Every rank's ``t`` (same shape on every rank), in rank order;
+    metered under ``kind``."""
     t = t.contiguous()
     out = [torch.empty_like(t) for _ in range(mesh.size)]
     dist.all_gather(out, t, group=mesh.group)
-    _record("all_gather", (mesh.size - 1) * t.numel() * t.element_size())
+    _record(kind, (mesh.size - 1) * t.numel() * t.element_size())
     return out
 
 

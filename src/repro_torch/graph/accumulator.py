@@ -70,6 +70,8 @@ transfer_stats: Dict[str, int] = {"edge_fetches": 0, "bytes": 0,
                                   "reshard_bytes": 0,
                                   "all_gather_calls": 0,
                                   "all_gather_bytes": 0,
+                                  "state_gather_calls": 0,
+                                  "state_gather_bytes": 0,
                                   "all_reduce_calls": 0,
                                   "all_reduce_bytes": 0}
 

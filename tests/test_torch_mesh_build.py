@@ -18,7 +18,9 @@ cross-rank bytes 0 at p = 1 and above 0 beyond; one edge fetch a rank;
 nothing dropped; the same graph on every rank.  ``exact_weights=False``
 ships bfloat16 weights: fewer bytes, two-hop recall within 1 % of the
 exact build (``test_mesh_parity.py:130``).  The constructor refuses what
-the port's mesh does not run yet, naming the argument.
+the port's mesh does not run, naming the argument: the set measures, the
+exact sweep, the pair cache, the paged store with the prefilter, and a
+learned measure that is not state-complete or comes with the prefilter.
 """
 
 import dataclasses
@@ -263,7 +265,8 @@ class _FakeMesh:
 
 
 @pytest.mark.parametrize("change,names", [
-    (dict(feature_store="paged"), "feature_store"),
+    (dict(feature_store="paged", hamming_prefilter_bits=64,
+          hamming_prefilter_max=24), "feature_store"),
     (dict(measure="jaccard"), "measure"),
     (dict(source="allpairs"), "source"),
     (dict(pair_cache_slots=64), "pair_cache_slots")])
@@ -274,6 +277,38 @@ def test_mesh_refuses_what_is_not_ported(change, names):
     with pytest.raises(NotImplementedError, match=names):
         GraphBuilder(np.zeros((8, 4), np.float32), cfg,
                      mesh=_FakeMesh(device=torch.device("cpu")))
+
+
+@pytest.mark.parametrize("pair_features,change,names", [
+    ("raw", {}, "pair_features"),
+    ("embed", dict(hamming_prefilter_bits=64, hamming_prefilter_max=24),
+     "hamming_prefilter_bits"),
+    ("embed", dict(feature_store="paged", hamming_prefilter_bits=64,
+                   hamming_prefilter_max=24), "hamming_prefilter_bits")])
+def test_mesh_refuses_learned_without_the_wire_diet(pair_features, change,
+                                                    names):
+    """A learned measure on a mesh ships its embeddings, never raw rows:
+    one that needs raw features at its tiles, or the prefilter's words,
+    is refused (src/repro/core/builder.py:866-877), with the paged store
+    too."""
+    import torch
+    from repro_torch import LearnedMeasure
+    from repro_torch.similarity import LearnedSimilarity, TwoTowerConfig
+    model = LearnedSimilarity(TwoTowerConfig(
+        in_dim=4, embed_dim=2, tower_hidden=4, head_hidden=4,
+        pair_features=pair_features, use_set_features=False))
+    meas = LearnedMeasure(model, model.init(torch.Generator().manual_seed(0)))
+    cfg = dataclasses.replace(config_from_reference(_jcfg("sorting-stars")),
+                              measure="learned", **change)
+    mesh = _FakeMesh(device=torch.device("cpu"))
+    with pytest.raises(NotImplementedError, match=names):
+        GraphBuilder(np.zeros((8, 4), np.float32), cfg, mesh=mesh,
+                     measure=meas)
+    # a legacy closure is not state-complete either
+    if not change:
+        with pytest.raises(NotImplementedError, match="learned_apply"):
+            GraphBuilder(np.zeros((8, 4), np.float32), cfg, mesh=mesh,
+                         learned_apply=lambda fa, fb: fa.dense @ fb.dense.T)
 
 
 def test_mesh_refuses_set_features_and_another_device():

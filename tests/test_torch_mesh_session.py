@@ -15,7 +15,10 @@ in storage of their own.  A checkpoint cut on 4 ranks
 restores onto 2 and onto one device bit for bit, and the three finished
 sessions are equal; a JAX single-device checkpoint restores onto the
 port's mesh through ``checkpoint_from_reference`` and finishes as the
-JAX session does.
+JAX session does.  The delta stream (``tests/test_service.py:371`` and
+``:401``): ``finalize(delta=True)`` on 2 and 4 ranks, before and after
+an extend, gives the single-device session's records, and a delta chain
+cut on 4 ranks replays into a one-device session bit for bit.
 """
 
 import numpy as np
@@ -103,6 +106,23 @@ class _Results:
             *j_acc.to_host(jb.slab_state())[:2]))
         self.resumed = {4: pool.collect(), 2: pool.collect()}
         self.j_resumed = {2: pool.collect(), 4: pool.collect()}
+        # the delta stream (tests/test_service.py:371-446's session)
+        feats, _ = mnist_like_points(n=402, d=24, classes=6, spread=0.25,
+                                     seed=0)
+        d = self.delta_x = np.asarray(feats.dense)
+        self.delta_cfg = config_from_reference(JConfig(
+            mode="sorting", scoring="stars", family=JHash("simhash", m=16),
+            measure="cosine", r=4, window=32, leaders=8, degree_cap=16,
+            seed=3))
+        for p in (2, 4):
+            pool.submit(jobs.delta_job, d[:396], d[396:], self.delta_cfg,
+                        size=p)
+        pool.submit(jobs.delta_chain_job, d[:396], d[396:], self.delta_cfg,
+                    size=4)
+        self.delta_single = jobs.delta_job(None, d[:396], d[396:],
+                                           self.delta_cfg)
+        self.delta = {2: pool.collect(), 4: pool.collect()}
+        self.chain = pool.collect()
 
 
 @pytest.fixture(scope="module")
@@ -170,3 +190,32 @@ def test_jax_checkpoint_resumes_on_the_mesh(results, p):
         assert diff["unexplained"] == 0 and diff["boundary_ties"] <= 4, diff
         assert diff["max_weight_diff"] <= 1e-6, diff
         assert _without_dropped(g.stats) == g_j.stats
+
+
+@pytest.mark.parametrize("p", [2, 4])
+def test_mesh_delta_stream_equals_single_device(results, p):
+    """finalize(delta=True) on p ranks, before and after an extend, gives
+    the single-device session's Z-set records: changed rows, record keys,
+    weight bits (tests/test_service.py:371)."""
+    d0, d1, rows1 = results.delta_single
+    assert rows1 > 0
+    for got in results.delta[p]:
+        assert got == (d0, d1, rows1)
+
+
+def test_mesh_delta_chain_replays_on_one_device(results):
+    """A full checkpoint cut on 4 ranks, an extend, a delta checkpoint:
+    replayed into a one-device session it is the mesh's live image bit
+    for bit, at the same stream position, and nothing re-ships
+    (tests/test_service.py:401)."""
+    from repro_torch import GraphBuilder
+    for full, dckpt, live, seq in results.chain:
+        assert len(dckpt.delta_chain) >= 1
+        rb = GraphBuilder.restore(results.delta_x, results.delta_cfg, dckpt,
+                                  base=full, device="cpu")
+        assert rb.delta_seq == seq
+        again = rb.checkpoint()
+        for name in ("nbr", "w", "ver"):
+            np.testing.assert_array_equal(getattr(again, name),
+                                          getattr(live, name))
+        assert rb.finalize(delta=True).num_records == 0

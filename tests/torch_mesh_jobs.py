@@ -125,3 +125,108 @@ def cluster_job(mesh, x, cfg, ckpt, affinity_args):
                 for args in affinity_args]
     return cc, cc_info, affinity, dict(acc_lib.transfer_stats)
 
+
+
+def _state_owned(b):
+    """(rows, storage bytes, tensor bytes) of a resident learned mesh
+    session's state block."""
+    t = b._backend._state_tab
+    return (t.shape[0], t.untyped_storage().nbytes(),
+            t.numel() * t.element_size())
+
+
+def paged_session_job(mesh, x, more, cfg, reps, ckpt_reps=0,
+                      cluster=False):
+    """add_reps, extend by ``more`` (2 repetitions), one refresh round,
+    then (with ``cluster``) both clusterings, and a checkpoint
+    (optionally after ``ckpt_reps`` more repetitions): the graph, the
+    slab image, the labels, this rank's transfer counters, host syncs
+    and scored rows."""
+    kw = {"device": "cpu"} if mesh is None else {"mesh": mesh}
+    acc_lib.reset_transfer_stats()
+    b = GraphBuilder(x, cfg, **kw).add_reps(reps)
+    b.extend(more, reps=2)
+    b.refresh_reps(1)
+    ts = dict(acc_lib.transfer_stats)
+    g = b.finalize()
+    state = b.slab_state()
+    labels = ((b.cluster("components"),
+               b.cluster("affinity", return_info=True, target_clusters=6))
+              if cluster else None)
+    backend = b._backend
+    out = {"graph": g, "nbr": state.nbr.numpy(), "w": state.w.numpy(),
+           "labels": labels, "transfer": ts,
+           "host_syncs": getattr(backend, "host_syncs", 0),
+           "rank_scored": getattr(backend, "rank_scored_windows", None),
+           "pairs_rounds": backend.pairs_rounds}
+    if ckpt_reps:
+        b.add_reps(ckpt_reps)
+    out["ckpt"] = b.checkpoint()
+    return out
+
+
+def paged_resume_job(mesh, x, more, cfg, ckpt, reps):
+    """Restore a paged session's checkpoint (taken after the extend) and
+    run ``reps`` repetitions: the graph."""
+    kw = {"device": "cpu"} if mesh is None else {"mesh": mesh}
+    allx = np.concatenate([x, more])
+    b = GraphBuilder.restore(allx, cfg, ckpt, **kw).add_reps(reps)
+    return b.finalize()
+
+
+def learned_build_job(mesh, x, cfg, measure, reps):
+    """add_reps + finalize with a measure (learned or closed-form):
+    the graph, the slab image and this rank's transfer counters."""
+    kw = {"device": "cpu"} if mesh is None else {"mesh": mesh}
+    acc_lib.reset_transfer_stats()
+    b = GraphBuilder(x, cfg, measure=measure, **kw).add_reps(reps)
+    ts = dict(acc_lib.transfer_stats)
+    state = b.slab_state()
+    return {"graph": b.finalize(), "nbr": state.nbr.numpy(),
+            "w": state.w.numpy(), "transfer": ts}
+
+
+def learned_session_job(mesh, x, n0, cfg, measure, reps):
+    """A resident learned session: ``reps`` repetitions on the first n0
+    points, an extend by the rest (one repetition), checkpoint, restore
+    (on the same ranks) and one more repetition: the graphs after the
+    extend and at the end, and the state block each rank owned after the
+    extend and after the restore."""
+    kw = {"device": "cpu"} if mesh is None else {"mesh": mesh}
+    b = GraphBuilder(x[:n0], cfg, measure=measure, **kw).add_reps(reps)
+    b.extend(x[n0:], reps=1)
+    owned = [] if mesh is None else [_state_owned(b)]
+    g_ext = b.finalize()
+    ckpt = b.checkpoint()
+    b = GraphBuilder.restore(x, cfg, ckpt, measure=measure, **kw)
+    b.add_reps(1)
+    if mesh is not None:
+        owned.append(_state_owned(b))
+    return g_ext, b.finalize(), owned
+
+
+def _records(d):
+    return (d.rows.tolist(), d.node.tolist(), d.nbr.tolist(),
+            d.w.view(np.int32).tolist(), d.sign.tolist())
+
+
+def delta_job(mesh, base, extra, cfg):
+    """finalize(delta=True) after add_reps and after an extend by
+    ``extra`` (2 repetitions): the two deltas' Z-set records."""
+    kw = {"device": "cpu"} if mesh is None else {"mesh": mesh}
+    b = GraphBuilder(base, cfg, **kw).add_reps(cfg.r)
+    d0 = b.finalize(delta=True)
+    b.extend(extra, reps=2)
+    d1 = b.finalize(delta=True)
+    return _records(d0), _records(d1), int(d1.rows.shape[0])
+
+
+def delta_chain_job(mesh, base, extra, cfg):
+    """A full checkpoint after add_reps, an extend, then a delta
+    checkpoint and a full one: the three, and the delta stream's
+    position."""
+    b = GraphBuilder(base, cfg, mesh=mesh).add_reps(cfg.r)
+    full = b.checkpoint()
+    b.extend(extra, reps=2)
+    dckpt = b.checkpoint(delta=True)
+    return full, dckpt, b.checkpoint(), b.delta_seq
