@@ -21,7 +21,11 @@ Phases, one JSON line each; any failed check exits non-zero:
               rows and on rows that break its merge's preconditions (each
               counted, and merged by its in-launch sort).
               flash_attention's row log-sum-exp (both designs) against
-              mha_lse_ref's; flash_attention_bwd (the gradient, with no
+              mha_lse_ref's; the global calls of olmoe-1b-7b (q, k and v
+              (64, 16, 2,048, 128)) and tinyllama-1.1b (q (4, 32, 1,024,
+              64), k and v (4, 4, 1,024, 64)) in bf16 against the plain
+              version (a chunk of sequences at a time), beside SDPA and
+              the bound; flash_attention_bwd (the gradient, with no
               TPU counterpart; two designs: TF32 tensor cores with split
               operands for head dims 64, 128 and 256, fp32 FMA
               otherwise) in fp32 and bf16 against mha_bwd_ref and
@@ -111,8 +115,30 @@ Phases, one JSON line each; any failed check exits non-zero:
               embeddings and affinity clustering; one block profiled.
  10. lm_generate: generate (greedy) for 8 prompts of 128 tokens on the
               same model, and the decode steps' logits against forward's.
- 11. lm_parity: gemma3's reduced config in fp32 on CUDA and on the CPU:
-              forward, embed_corpus and greedy generate agree.
+ 11. lm_parity: the reduced configs of the six ported architectures
+              (gemma3-1b, olmoe-1b-7b, deepseek-v3-671b, tinyllama-1.1b,
+              qwen3-8b, phi4-mini-3.8b) in fp32 on CUDA and on the CPU:
+              forward logits, the MoE aux loss, embed_corpus and greedy
+              generate agree.
+     lm_moe:  olmoe-1b-7b at full width and depth (16 layers, 64 experts
+              top-8, bf16, random weights) embeds 1,024 sequences of
+              2,048 tokens (256 flash_attention launches, all the
+              tensor-core design at head dim 128; the share of MoE
+              assignments dropped at capacity factor 1.25), then Stars
+              and affinity; generate for 8 prompts of 128 + 32 tokens;
+              decode against forward at capacity factor 8 (nothing
+              drops); one block profiled, with the MoE dispatch's stages
+              (route, sort, dispatch gather, experts, combine) as spans.
+     lm_mla:  deepseek-v3-671b at full width with its depth cut to 2
+              layers (one mla_dense prefix layer, one mla_moe layer of
+              256 experts with a shared one): forward on 2 x 512 tokens,
+              generate for 2 prompts of 32 + 8 tokens, the absorbed decode
+              against forward at capacity factor 32.
+     lm_dense_configs: tinyllama-1.1b, qwen3-8b and phi4-mini-3.8b at full
+              width and depth, one at a time: forward on 4 x 1,024 tokens
+              (flash_attention on the tensor-core design at head dim 64,
+              128, 128), generate and decode against forward; tinyllama
+              also embeds 256 sequences of 2,048 tokens.
      train_lm: launch/train.py::train_loop on gemma3-1b at full width
               and depth, fp32, remat, 4 steps of 2 x 2,048 tokens: s / step,
               tokens / s, losses, grad norms, peak memory, the attention
@@ -876,6 +902,78 @@ def check_lse(torch, what, q, k, v, causal, window, out):
 FLASH_PATH = (64, 4, 1, 2048, 2048, 256)
 
 
+# The global calls of the other models' paths, bf16, causal, no window:
+# olmoe-1b-7b's on a block of 64 sequences of 2,048 tokens (16 query heads
+# over 16 KV heads, head dim 128; lm_moe) and the dense configs' forward
+# on 4 x 1,024 tokens (lm_dense_configs): tinyllama-1.1b's (32 over 4,
+# head dim 64), qwen3-8b's (32 over 8, a group of 4) and
+# phi4-mini-3.8b's (24 over 8, a group of 3), head dim 128
+FLASH_MODEL_CALLS = {"olmoe-1b-7b": (64, 16, 16, 2048, 2048, 128),
+                     "tinyllama-1.1b": (4, 32, 4, 1024, 1024, 64),
+                     "qwen3-8b": (4, 32, 8, 1024, 1024, 128),
+                     "phi4-mini-3.8b": (4, 24, 8, 1024, 1024, 128)}
+# sequences a plain-version call at those shapes, so that its fp32 scores
+# (8 x 16 x 2,048 x 2,048 of them) are an eighth of the whole block's
+FLASH_PLAIN_CHUNK = 8
+
+
+def flash_model_row(torch, gen, model, shape) -> dict:
+    """A model's call: the kernel (the tensor-core design) against the
+    plain version, run a chunk of sequences at a time, and its row
+    log-sum-exp against ``mha_lse_ref``'s; the kernel's ms beside the
+    plain version's, SDPA's (``is_causal``) and the bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    b, hq, hkv, sq, sk, d = shape
+    q, k, v = flash_inputs(torch, gen, shape, torch.bfloat16)
+    what = f"flash_attention {model} {list(shape)}"
+    chunks = [slice(i, i + FLASH_PLAIN_CHUNK)
+              for i in range(0, b, FLASH_PLAIN_CHUNK)]
+    plain = lambda: torch.cat([ref.mha_ref(q[c], k[c], v[c], causal=True)
+                               for c in chunks])
+    before = dict(fa.design_launches)
+    got = fa.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    ran = [n for n, c in fa.design_launches.items() if c != before[n]]
+    check(ran == ["wgmma"], f"{what}: launched {ran}")
+    want = plain()
+    err = (got.float() - want.float()).abs().max().item()
+    check(bool(torch.isfinite(want).all()) and err <= FLASH_TOL["bfloat16"],
+          f"{what}: differs by {err}")
+    del want
+    got_lse, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    check(torch.equal(got_lse, got), f"{what}: the output changes when the "
+          "log-sum-exp is written")
+    lse_err = max((lse[c] - ref.mha_lse_ref(q[c], k[c], v[c],
+                                            causal=True)[1]).abs().max()
+                  .item() for c in chunks)
+    check(lse_err <= LSE_TOL, f"{what}: the log-sum-exp differs by "
+          f"{lse_err}")
+    del got, got_lse, lse
+    ms = cuda_ms(torch, lambda: fa.flash_attention(q, k, v, causal=True), 20)
+    plain_ms = cuda_ms(torch, plain, 2)
+    library_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), 20)
+    pairs = visible_pairs(sq, sk, True, None)
+    moved = 2 * nbytes(q) + nbytes(k, v)
+    flops = 4.0 * d * pairs * b * hq
+    row = {"at": f"{model} global", "shape": list(shape), "window": None,
+           "dtype": "bfloat16", "design": "wgmma", "max_abs_err": err,
+           "lse_max_abs_err": lse_err, "ms": ms, "plain_ms": plain_ms,
+           "plain": f"ref.mha_ref, {FLASH_PLAIN_CHUNK} sequences a call",
+           "library_ms": library_ms,
+           "library": "torch.nn.functional.scaled_dot_product_attention, "
+                      "is_causal",
+           "visible_pairs_per_head": pairs,
+           "contract_tflop_per_s": flops / ms / 1e9,
+           **bound(moved, flops, BF16_FLOP_PER_S),
+           "split_bound_ms": bound(moved, 1.5 * flops,
+                                   BF16_FLOP_PER_S)["bound_ms"]}
+    emit({"phase": "kernels", "kernel": "flash_attention", **row})
+    return row
+
+
 def phase_flash_attention(torch) -> dict:
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -943,6 +1041,9 @@ def phase_flash_attention(torch) -> dict:
                "split_bound_ms": split}
         emit({"phase": "kernels", "kernel": "flash_attention", **row})
         shapes.append(row)
+        torch.cuda.empty_cache()
+    for model, shape in FLASH_MODEL_CALLS.items():
+        shapes.append(flash_model_row(torch, gen, model, shape))
         torch.cuda.empty_cache()
     local = shapes[1]
     return {"name": "flash_attention", "route": "cuda",
@@ -1345,6 +1446,21 @@ def timed_reps(torch, builder, reps):
     return out
 
 
+def timed_finalize(torch, builder):
+    """``builder.finalize()``: the graph, and its seconds with the card's
+    allocated bytes before it and at its peak (the compaction's sorts run
+    on the card)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    graph = builder.finalize()
+    return graph, {"finalize_seconds": time.perf_counter() - t,
+                   "finalize_base_device_bytes": base,
+                   "finalize_peak_device_bytes":
+                       torch.cuda.max_memory_allocated()}
+
+
 def run_build(torch, phase, x, cfg, need, extra=None, truth=None):
     """One path of the port: GraphBuilder(x, cfg).add_reps().finalize()
     with every launch count set to 0 just before and read just after
@@ -1375,9 +1491,7 @@ def run_build(torch, phase, x, cfg, need, extra=None, truth=None):
         check(ok(launches[name]),
               f"{phase}: {name} launched {launches[name]} times: {launches}")
     peak = torch.cuda.max_memory_allocated()
-    t = time.perf_counter()
-    graph = builder.finalize()
-    finalize_s = time.perf_counter() - t
+    graph, fin = timed_finalize(torch, builder)
     stats = graph.stats
     check(graph.num_edges > 0, f"{phase}: no edges")
     check(bool(np.isfinite(graph.w).all()), f"{phase}: non-finite weight")
@@ -1406,7 +1520,7 @@ def run_build(torch, phase, x, cfg, need, extra=None, truth=None):
           "hamming_prefilter": [cfg.hamming_prefilter_bits,
                                 cfg.hamming_prefilter_max],
           "seconds_per_rep": rep_s, "reps_seconds": reps_s,
-          "finalize_seconds": finalize_s, "recall_seconds": recall_s,
+          **fin, "recall_seconds": recall_s,
           "comparisons": stats["comparisons"],
           "emitted": stats.get("emitted"),
           "prefilter_ops": stats.get("prefilter_ops"),
@@ -1458,8 +1572,9 @@ def phase_e2e_paged(torch, x, reference) -> dict:
     the points go to the store from a host copy, cfg.r repetitions, then
     the slabs and stats against e2e's bit for bit; the page traffic, the
     chunks and host syncs a repetition, the H2D rate reached beside the
-    rate of a pinned copy loop of one page.  No finalize (e2e's slabs,
-    equal, were finalized).  Returns the launch counts."""
+    rate of a pinned copy loop of one page; the finalize's seconds and
+    peak device bytes.  Returns the launch counts."""
+    import numpy as np
     from repro_torch import GraphBuilder, StarsConfig
     from repro_torch.graph import accumulator as acc
     cfg = StarsConfig(feature_store="paged")
@@ -1507,6 +1622,13 @@ def phase_e2e_paged(torch, x, reference) -> dict:
           f"e2e_paged: page bytes {ts}")
     check(backend.host_syncs == rounds,
           f"e2e_paged: {backend.host_syncs} host syncs, {rounds} chunks")
+    peak = torch.cuda.max_memory_allocated()
+    del live
+    graph, fin = timed_finalize(torch, builder)
+    check(graph.num_edges > 0 and bool(np.isfinite(graph.w).all()),
+          "e2e_paged: empty or non-finite graph")
+    edges = graph.num_edges
+    del graph
     reps_s = sum(rep_s)
     rate = pinned_copy_rate(torch, store.page_bytes)
     emit({"phase": "e2e_paged", "n": builder.n, "d": store.d,
@@ -1525,8 +1647,8 @@ def phase_e2e_paged(torch, x, reference) -> dict:
           "pinned_copy_gb_per_s": rate / 1e9,
           "copy_floor_seconds_per_rep": ts["feature_page_bytes"] / r / rate,
           "slabs_equal_e2e": equal, "launches": launches,
-          "peak_device_bytes": torch.cuda.max_memory_allocated()})
-    del builder, state, live, store, backend
+          "peak_device_bytes": peak, "edges": edges, **fin})
+    del builder, state, store, backend
     torch.cuda.empty_cache()
     return launches
 
@@ -2031,6 +2153,12 @@ def mesh_store_p1(torch, x, reference) -> tuple:
             check(stats[key] == ref_stats[key],
                   f"e2e_mesh_store: {key} {stats[key]} against e2e's "
                   f"{ref_stats[key]}")
+        peak = torch.cuda.max_memory_allocated()
+        graph, fin = timed_finalize(torch, builder)
+        check(graph.num_edges > 0 and bool(np.isfinite(graph.w).all()),
+              "e2e_mesh_store: empty or non-finite graph")
+        edges = graph.num_edges
+        del graph
         cc_ref, af_ref, info_ref, _ = reference_labels(torch, reference, n)
         t = time.perf_counter()
         cc = builder.cluster("components")
@@ -2055,8 +2183,9 @@ def mesh_store_p1(torch, x, reference) -> tuple:
             "all_to_all_calls": ts["all_to_all_calls"],
             "h2d_gb_per_s": ts["feature_page_bytes"] / reps_s / 1e9,
             "slabs_equal_e2e": True, "components_s": components_s,
-            "affinity_s": affinity_s,
-            "peak_device_bytes": torch.cuda.max_memory_allocated()})
+            "affinity_s": affinity_s, "edges": edges, **fin,
+            "peak_device_bytes": max(peak,
+                                     torch.cuda.max_memory_allocated())})
         del builder, backend
         torch.cuda.empty_cache()
 
@@ -2822,11 +2951,13 @@ def phase_profile(torch, path, builder) -> None:
     profile_call(torch, path, lambda: builder.add_reps(1))
 
 
-def profile_call(torch, path, fn, groups=None) -> dict:
+def profile_call(torch, path, fn, groups=None, spans=()) -> dict:
     """Run ``fn`` once under torch.profiler: the device's busy and idle
     share of its wall time (profiler on) and device time by kernel and by
     the PyTorch operator that launched it; ``groups`` maps a group name to
-    kernel-name substrings, and kernels in no group sum to "rest"."""
+    kernel-name substrings, and kernels in no group sum to "rest";
+    ``spans`` names record_function spans of the code, each given the
+    device time of the kernels launched inside it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -2839,7 +2970,9 @@ def profile_call(torch, path, fn, groups=None) -> dict:
     events = prof.key_averages()
     kernels = {}
     for e in events:
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+        # a span's own row on the device's timeline is not a kernel
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0 \
+                and e.key not in MOE_SPANS:
             # kernel names are whole C++ signatures: group by a prefix
             name = e.key[:160]
             kernels[name] = (kernels.get(name, 0.0)
@@ -2858,9 +2991,17 @@ def profile_call(torch, path, fn, groups=None) -> dict:
            "device_busy_ms": busy_ms,
            "device_idle_share": 1.0 - busy_ms / (wall * 1e3),
            "kernel_launches": sum(e.count for e in events
-                                  if e.device_type == DeviceType.CUDA),
+                                  if e.device_type == DeviceType.CUDA
+                                  and e.key not in MOE_SPANS),
            "device_ms_by_group": by_group,
            "top_kernels_ms": top(kernels), "top_ops_ms": top(ops)}
+    if spans:
+        row["device_ms_by_span"] = {
+            e.key: e.device_time_total / 1e3 for e in events
+            if e.key in spans and e.device_type == DeviceType.CPU}
+        row["span_calls"] = {e.key: e.count for e in events
+                             if e.key in spans
+                             and e.device_type == DeviceType.CPU}
     emit(row)
     return row
 
@@ -2874,6 +3015,9 @@ def profile_call(torch, path, fn, groups=None) -> dict:
 # 2,048 sequences (4,096 until the training phases came)
 LM_DOCS, LM_SEQ, LM_BLOCK, LM_CLASSES = 2048, 2048, 64, 64
 MATMUL_KERNELS = ("gemm", "nvjet", "xmma", "cutlass", "cublas")
+# the MoE FFN's stages: record_function spans in models/moe.py
+MOE_SPANS = ("moe.route", "moe.sort", "moe.dispatch", "moe.experts",
+             "moe.combine", "moe.shared")
 
 
 def lm_corpus(torch, n, seq, classes, vocab, seed):
@@ -2889,38 +3033,102 @@ def lm_corpus(torch, n, seq, classes, vocab, seed):
     return torch.where(coin, topical, background), labels
 
 
-def phase_lm_embed(torch, cfg, params):
-    """embed_corpus at full width, then the default Stars build over the
-    embeddings and affinity clustering.  Returns the launch counts of the
-    whole path and the corpus."""
+def lm_init(torch, cfg, seed=SEED):
+    """Random parameters for ``cfg`` on the card from a seeded
+    torch.Generator, with their count and the seconds they took."""
+    from repro_torch.models import init_params
+    t = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    n_params = sum(t_.numel() for layer in params["layers"]
+                   for t_ in layer.values()) \
+        + sum(v.numel() for k, v in params.items() if k != "layers")
+    heads = ({"mla_dims": {"q_lora": cfg.mla_q_lora,
+                           "kv_lora": cfg.mla_kv_lora,
+                           "rope": cfg.mla_rope_dim, "nope": cfg.mla_nope_dim,
+                           "v": cfg.mla_v_dim}} if cfg.mla
+             else {"head_dim": cfg.hd})
+    emit({"phase": "lm_init", "model": cfg.name, "params": n_params,
+          "param_bytes": n_params * torch.empty(
+              (), dtype=cfg.param_dtype).element_size(),
+          "layers": cfg.n_layers, "d_model": cfg.d_model,
+          "heads": [cfg.n_heads, cfg.n_kv_heads], **heads,
+          "vocab": cfg.vocab, "dtype": str(cfg.dtype),
+          "seconds": time.perf_counter() - t})
+    return params
+
+
+def params_to_fp32_(torch, params) -> None:
+    """Cast every parameter to fp32 in place, one tensor at a time, so
+    that the bf16 and fp32 copies of the whole model never coexist."""
+    for key, val in params.items():
+        if key == "layers":
+            for layer in val:
+                for name in layer:
+                    layer[name] = layer[name].float()
+        else:
+            params[key] = val.float()
+    torch.cuda.empty_cache()
+
+
+def phase_lm_embed(torch, cfg, params, phase="lm_embed", docs=LM_DOCS,
+                   seed=SEED + 7, cluster=True):
+    """embed_corpus at full width (every flash_attention launch on the
+    tensor-core design), then, with ``cluster``, the default Stars build
+    over the embeddings and affinity clustering, and one block profiled.
+    For a MoE model, the share of assignments dropped at the config's
+    capacity, and the profile's device time by the dispatch's stages.
+    Returns the launch counts of the whole path and the corpus."""
     import numpy as np
     from repro_torch import GraphBuilder, PointFeatures, StarsConfig
     from repro_torch.graph.affinity import affinity_clustering
     from repro_torch.graph.metrics import v_measure
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch.serve import embed_corpus
-    toks, labels = lm_corpus(torch, LM_DOCS, LM_SEQ, LM_CLASSES, cfg.vocab,
-                             SEED + 7)
+    from repro_torch.models import moe as moe_lib
+    toks, labels = lm_corpus(torch, docs, LM_SEQ, LM_CLASSES, cfg.vocab, seed)
     n_layers = cfg.n_layers
+    blocks = -(-docs // LM_BLOCK)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t = time.perf_counter()
-    emb = embed_corpus(cfg, params, toks, block=LM_BLOCK)
+    emb, _, drops = routed(torch, lambda: embed_corpus(
+        cfg, params, toks, block=LM_BLOCK), keep=False)
     torch.cuda.synchronize()
     embed_s = time.perf_counter() - t
     flash = read_launches()["flash_attention"]
     designs = dict(fa.design_launches)
-    check(flash == n_layers * LM_DOCS // LM_BLOCK,
-          f"lm_embed: flash_attention launched {flash} times, expected "
-          f"{n_layers * LM_DOCS // LM_BLOCK}")
+    check(flash == n_layers * blocks,
+          f"{phase}: flash_attention launched {flash} times, expected "
+          f"{n_layers * blocks}")
     check(designs == {"wgmma": flash, "mma": 0, "fma": 0},
-          f"lm_embed: flash_attention launches by design {designs}: all "
+          f"{phase}: flash_attention launches by design {designs}: all "
           f"{flash} should be the tensor-core design")
-    check(emb.shape == (LM_DOCS, cfg.d_model) and emb.dtype == torch.float32,
-          f"lm_embed: embeddings {tuple(emb.shape)} {emb.dtype}")
-    check(bool(torch.isfinite(emb).all()), "lm_embed: non-finite embedding")
+    check(emb.shape == (docs, cfg.d_model) and emb.dtype == torch.float32,
+          f"{phase}: embeddings {tuple(emb.shape)} {emb.dtype}")
+    check(bool(torch.isfinite(emb).all()), f"{phase}: non-finite embedding")
     peak = torch.cuda.max_memory_allocated()
+    row = {"phase": phase, "model": cfg.name, "docs": docs, "seq": LM_SEQ,
+           "block": LM_BLOCK, "head_dim": cfg.hd, "embed_seconds": embed_s,
+           "tokens_per_s": docs * LM_SEQ / embed_s,
+           "flash_attention_launches_in_embed": flash,
+           "flash_attention_launches_by_design": designs,
+           "peak_device_bytes_embed": peak}
+    if cfg.moe is not None:
+        assigned, dropped = drops
+        check(assigned == docs * LM_SEQ * cfg.moe.top_k * n_layers,
+              f"{phase}: {assigned} MoE assignments")
+        row.update({"capacity_factor": cfg.moe.capacity_factor,
+                    "capacity_a_block": moe_lib.capacity(
+                        cfg.moe, LM_BLOCK * LM_SEQ),
+                    "moe_assignments": assigned, "moe_dropped": dropped,
+                    "moe_dropped_share": dropped / assigned})
+    if not cluster:
+        launches = read_launches()
+        launches["flash_attention_by_design"] = designs
+        emit(row)
+        return launches, toks
     t = time.perf_counter()
     graph = GraphBuilder(PointFeatures(dense=emb), StarsConfig()) \
         .add_reps().finalize()
@@ -2928,31 +3136,27 @@ def phase_lm_embed(torch, cfg, params):
     launches = read_launches()
     launches["flash_attention_by_design"] = designs
     for name in ("window_score", "topk_merge"):
-        check(launches[name] > 0, f"lm_embed: {name} never launched")
+        check(launches[name] > 0, f"{phase}: {name} never launched")
     check(launches["window_score_by_design"]["pipe"] == 0,
-          f"lm_embed: window_score at d = {cfg.d_model} launched "
+          f"{phase}: window_score at d = {cfg.d_model} launched "
           f"{launches['window_score_by_design']}: all should be the tile "
           "design")
     for name, ok in MERGE_ONLY.items():
-        check(ok(launches[name]), f"lm_embed: {name} {launches[name]}")
+        check(ok(launches[name]), f"{phase}: {name} {launches[name]}")
     check(graph.num_edges > 0 and bool(np.isfinite(graph.w).all()),
-          "lm_embed: empty or non-finite graph")
+          f"{phase}: empty or non-finite graph")
     pred = affinity_clustering(graph, target_clusters=LM_CLASSES)
     v = v_measure(labels.cpu().numpy(), pred)["v"]
-    emit({"phase": "lm_embed", "model": cfg.name, "docs": LM_DOCS,
-          "seq": LM_SEQ, "block": LM_BLOCK, "embed_seconds": embed_s,
-          "tokens_per_s": LM_DOCS * LM_SEQ / embed_s,
-          "flash_attention_launches_in_embed": flash,
-          "flash_attention_launches_by_design": designs,
-          "peak_device_bytes_embed": peak, "build_seconds": build_s,
+    emit({**row, "build_seconds": build_s,
           "comparisons": graph.stats["comparisons"],
           "edges": graph.num_edges, "clusters": int(len(np.unique(pred))),
           "v_measure": v, "launches": launches})
-    profile_call(torch, "lm_embed (one block of 64 sequences)",
+    profile_call(torch, f"{phase} (one block of {LM_BLOCK} sequences)",
                  lambda: embed_corpus(cfg, params, toks[:LM_BLOCK],
                                       block=LM_BLOCK),
                  groups={"flash_attention": ("flash_attention",),
-                         "matmul": MATMUL_KERNELS})
+                         "matmul": MATMUL_KERNELS},
+                 spans=MOE_SPANS if cfg.moe is not None else ())
     return launches, toks
 
 
@@ -2962,90 +3166,385 @@ def phase_lm_embed(torch, cfg, params):
 # here and there and grow over 26 layers.  The bound is stated relative
 # to the largest logit.
 LM_DECODE_RTOL = 0.05
+# A MoE model's decode against forward: a rounding difference between the
+# two paths (other product shapes; in fp32 the attention kernel's
+# split-TF32 design against decode's einsums, about 1e-5 relative) moves a
+# router logit, and where a token's 8th and 9th experts are that close it
+# picks another expert, whose output (of order 10 a coordinate at random
+# weights) moves the token's logits by O(1), and through attention the
+# later tokens' a little.  So the routing of every token in every MoE
+# layer is recorded on both paths, and the logits of each sequence are
+# held only up to its first token routed differently in any layer: in
+# bf16 on a prefix of LM_MOE_BF16_PREFIX tokens within LM_DECODE_RTOL of
+# the largest logit (at least one row before a flip; olmoe-1b-7b's
+# 8 x 32 rows flip early, 10 of 256 stood before a flip); in fp32 (the
+# same weights cast, IEEE products) on all tokens within
+# LM_MOE_DECODE_FP32_RTOL, with at least LM_MOE_FP32_CLEAN_SHARE of the
+# rows before a flip (olmoe measured 1,037 of 1,280) and no more than
+# LM_MOE_FLIP_SHARE of the routing decisions differing.
+LM_MOE_DECODE_FP32_RTOL = 2e-4
+LM_MOE_FP32_CLEAN_SHARE = 0.5
+LM_MOE_FLIP_SHARE = 1e-3
+LM_MOE_BF16_PREFIX = 32
 
 
-def phase_lm_generate(torch, cfg, params, toks):
-    """generate (greedy) for 8 prompts of 128 tokens, then the decode
-    steps' logits against forward's on the same tokens."""
-    from repro_torch.launch.serve import generate
+def routed(torch, fn, keep=True):
+    """``fn()`` with the routing of every ``moe_ffn`` call recorded (the
+    router recomputed from the call's inputs, the same ops as moe_ffn's):
+    its result, a list of (B, S, top_k) expert ids, sorted, one a call
+    (empty unless ``keep``), and [assignments, assignments dropped] summed
+    over the calls: an expert given n_e of a call's assignments drops
+    max(n_e - capacity(B * S), 0) of them."""
+    from repro_torch.models import moe as moe_lib
+    calls, counts = [], []
+    inner = moe_lib.moe_ffn
+
+    def recording(p, cfg, x, prefix="moe"):
+        mo = cfg.moe
+        with moe_lib.ieee_fp32_matmul():
+            logits = x.reshape(-1, x.shape[-1]).to(mo.router_dtype) \
+                @ p[f"{prefix}_router"].to(mo.router_dtype)
+        idx = torch.topk(torch.softmax(logits, dim=-1), mo.top_k,
+                         dim=-1).indices
+        per_expert = torch.bincount(idx.reshape(-1),
+                                    minlength=mo.num_experts)
+        cap = moe_lib.capacity(mo, idx.shape[0])
+        counts.append(torch.stack([per_expert.sum(),
+                                   (per_expert - cap).clamp_min(0).sum()]))
+        if keep:
+            calls.append(idx.sort(dim=-1).values.reshape(
+                x.shape[0], x.shape[1], mo.top_k))
+        return inner(p, cfg, x, prefix)
+
+    moe_lib.moe_ffn = recording
+    try:
+        out = fn()
+    finally:
+        moe_lib.moe_ffn = inner
+    drops = torch.stack(counts).sum(0).tolist() if counts else [0, 0]
+    return out, calls, drops
+
+
+def decode_vs_forward(torch, cfg, params, out, max_len) -> dict:
+    """The decode steps' logits over the tokens ``out`` (B, S) against
+    forward's: the largest |difference| and |forward logit|, the MoE
+    assignments dropped on both paths; for a MoE
+    model also the routing decisions that differ and the largest
+    |difference| over the rows before each sequence's first one."""
     from repro_torch.models import decode_step, forward, init_cache
-    prompt = toks[:8, :128]
-    out, stats = generate(cfg, params, prompt, max_new=32, max_len=256)
-    check(out.shape == (8, 160) and torch.equal(out[:, :128], prompt),
-          f"lm_generate: output {tuple(out.shape)}")
-    check(bool(((out >= 0) & (out < cfg.vocab)).all()),
-          "lm_generate: token out of the vocab")
-    logits, _ = forward(cfg, params, {"tokens": out})
-    cache = init_cache(cfg, 8, 256)
-    err = 0.0
+    (logits, _), fwd_routes, dropped = routed(
+        torch, lambda: forward(cfg, params, {"tokens": out}))
+    dropped = dropped[1]
+    cache = init_cache(cfg, out.shape[0], max_len)
+    diffs, dec_routes = [], []
     for t in range(out.shape[1]):
-        lg, cache = decode_step(cfg, params, out[:, t:t + 1], cache, t)
-        err = max(err, (lg.float() - logits[:, t].float()).abs().max().item())
-    scale = logits.float().abs().max().item()
-    emit({"phase": "lm_generate", "prompts": 8, "prompt_len": 128,
-          "new_tokens": 32, "max_len": 256, **stats,
-          "decode_vs_forward_max_abs": err, "max_abs_logit": scale,
-          "rtol": LM_DECODE_RTOL})
-    check(math.isfinite(err) and err <= LM_DECODE_RTOL * scale,
-          f"lm_generate: decode logits differ from forward's by {err} "
-          f"(largest logit {scale})")
+        (lg, cache), r, d = routed(torch, lambda: decode_step(
+            cfg, params, out[:, t:t + 1], cache, t))
+        diffs.append((lg.float() - logits[:, t].float()).abs().amax(dim=-1))
+        dec_routes.append(r)
+        dropped += d[1]
+    diff = torch.stack(diffs, dim=1)                           # (B, S)
+    res = {"max_abs": diff.max().item(),
+           "max_abs_logit": logits.float().abs().max().item(),
+           "moe_dropped": dropped}
+    if fwd_routes:
+        # per layer, (B, S): token t of sequence b routed differently
+        flips = [(torch.cat([r[layer] for r in dec_routes], dim=1)
+                  != fwd).any(dim=-1) for layer, fwd in enumerate(fwd_routes)]
+        clean = torch.stack(flips).any(dim=0).long().cumsum(dim=1) == 0
+        res.update({
+            "routing_decisions": len(flips) * diff.numel(),
+            "routing_flips": int(sum(f.sum() for f in flips)),
+            "rows": diff.numel(), "rows_before_a_flip": int(clean.sum()),
+            "max_abs_before_a_flip": (diff[clean].max().item()
+                                      if clean.any() else None)})
+    return res
+
+
+def phase_lm_generate(torch, cfg, params, toks, phase="lm_generate",
+                      prompts=8, prompt_len=128, new=32, max_len=256,
+                      check_cfg=None):
+    """generate (greedy) for ``prompts`` prompts of ``prompt_len``
+    tokens, then the decode steps' logits against forward's on the same
+    tokens.  A MoE model's check runs under ``check_cfg``, a capacity
+    where nothing drops (which must hold), and sees routing (see
+    LM_MOE_DECODE_FP32_RTOL): in bf16 on the first LM_MOE_BF16_PREFIX
+    tokens, measured, then in fp32 on all, held (the parameters are cast
+    in place: the phase's last use of them)."""
+    import dataclasses
+    from repro_torch.launch.serve import generate
+    prompt = toks[:prompts, :prompt_len]
+    (out, stats), _, gen_drops = routed(
+        torch, lambda: generate(cfg, params, prompt, max_new=new,
+                                max_len=max_len), keep=False)
+    check(out.shape == (prompts, prompt_len + new)
+          and torch.equal(out[:, :prompt_len], prompt),
+          f"{phase}: output {tuple(out.shape)}")
+    check(bool(((out >= 0) & (out < cfg.vocab)).all()),
+          f"{phase}: token out of the vocab")
+    row = {"phase": phase, "model": cfg.name, "prompts": prompts,
+           "prompt_len": prompt_len, "new_tokens": new, "max_len": max_len,
+           **stats}
+    if cfg.moe is None:
+        res = decode_vs_forward(torch, cfg, params, out, max_len)
+        err, scale = res["max_abs"], res["max_abs_logit"]
+        emit({**row, "decode_vs_forward_max_abs": err, "max_abs_logit": scale,
+              "rtol": LM_DECODE_RTOL})
+        check(math.isfinite(err) and err <= LM_DECODE_RTOL * scale,
+              f"{phase}: decode logits differ from forward's by {err} "
+              f"(largest logit {scale})")
+        return
+    bf16 = decode_vs_forward(torch, check_cfg, params,
+                             out[:, :LM_MOE_BF16_PREFIX], max_len)
+    params_to_fp32_(torch, params)
+    cfg32 = dataclasses.replace(check_cfg, dtype=torch.float32,
+                                param_dtype=torch.float32)
+    fp32 = decode_vs_forward(torch, cfg32, params, out, max_len)
+    emit({**row, "generate_capacity_factor": cfg.moe.capacity_factor,
+          "generate_moe_dropped_share": gen_drops[1] / gen_drops[0],
+          "check_capacity_factor": check_cfg.moe.capacity_factor,
+          "bf16_prefix": LM_MOE_BF16_PREFIX, "bf16": bf16, "fp32": fp32,
+          "bf16_rtol": LM_DECODE_RTOL, "fp32_rtol": LM_MOE_DECODE_FP32_RTOL,
+          "fp32_clean_share_limit": LM_MOE_FP32_CLEAN_SHARE,
+          "flip_share_limit": LM_MOE_FLIP_SHARE})
+    check(bf16["moe_dropped"] == fp32["moe_dropped"] == 0,
+          f"{phase}: assignments dropped at capacity factor "
+          f"{check_cfg.moe.capacity_factor}: {bf16['moe_dropped']} / "
+          f"{fp32['moe_dropped']}")
+    err, scale = bf16["max_abs_before_a_flip"], bf16["max_abs_logit"]
+    check(err is not None and math.isfinite(bf16["max_abs"])
+          and err <= LM_DECODE_RTOL * scale,
+          f"{phase}: bf16 decode logits differ from forward's by {err} "
+          f"before a routing flip (largest logit {scale})")
+    check(fp32["rows_before_a_flip"]
+          >= LM_MOE_FP32_CLEAN_SHARE * fp32["rows"],
+          f"{phase}: {fp32['rows_before_a_flip']} of {fp32['rows']} rows "
+          "before a routing flip in fp32")
+    check(fp32["routing_flips"]
+          <= LM_MOE_FLIP_SHARE * fp32["routing_decisions"],
+          f"{phase}: {fp32['routing_flips']} of "
+          f"{fp32['routing_decisions']} routing decisions differ in fp32")
+    err, scale = fp32["max_abs_before_a_flip"], fp32["max_abs_logit"]
+    check(err is not None and math.isfinite(fp32["max_abs"])
+          and err <= LM_MOE_DECODE_FP32_RTOL * scale,
+          f"{phase}: fp32 decode logits differ from forward's by {err} "
+          f"before a routing flip (largest logit {scale})")
+
+
+# The REDUCED configs of every ported architecture, in fp32 on CUDA and on
+# the CPU
+LM_PARITY_CONFIGS = ("gemma3-1b", "olmoe-1b-7b", "deepseek-v3-671b",
+                     "tinyllama-1.1b", "qwen3-8b", "phi4-mini-3.8b")
 
 
 def phase_lm_parity(torch):
-    """gemma3's REDUCED config in fp32 on CUDA and on the CPU: forward
-    logits, embed_corpus and greedy generate agree."""
+    """Each REDUCED config in fp32 on CUDA and on the CPU: forward logits,
+    the MoE aux loss, embed_corpus and greedy generate agree."""
     import dataclasses
-    from repro_torch.configs import gemma3_1b
+    from repro_torch import configs
     from repro_torch.launch.serve import embed_corpus, generate
     from repro_torch.models import forward, init_params
-    cfg = dataclasses.replace(gemma3_1b.REDUCED, dtype=torch.float32,
-                              param_dtype=torch.float32)
-    p_cpu = init_params(cfg, torch.Generator().manual_seed(SEED),
-                        device="cpu")
-    p_gpu = {k: ([{n: t.cuda() for n, t in layer.items()} for layer in v]
-                 if k == "layers" else v.cuda()) for k, v in p_cpu.items()}
-    gen = torch.Generator().manual_seed(SEED + 8)
-    toks = torch.randint(0, cfg.vocab, (4, 64), generator=gen)
-    res = {}
-    for dev, p in (("cuda", p_gpu), ("cpu", p_cpu)):
-        t = toks.to(dev)
-        logits, _ = forward(cfg, p, {"tokens": t})
-        emb = embed_corpus(cfg, p, t, block=2)
-        out, _ = generate(cfg, p, t[:, :16], max_new=16, max_len=32)
-        res[dev] = (logits.cpu(), emb.cpu(), out.cpu())
-    d_logits = (res["cuda"][0] - res["cpu"][0]).abs().max().item()
-    d_emb = (res["cuda"][1] - res["cpu"][1]).abs().max().item()
-    same_tokens = torch.equal(res["cuda"][2], res["cpu"][2])
-    emit({"phase": "lm_parity", "config": cfg.name, "logits_max_abs": d_logits,
-          "embed_max_abs": d_emb, "greedy_tokens_equal": same_tokens})
-    check(d_logits <= 1e-4, f"lm_parity: logits differ by {d_logits}")
-    check(d_emb <= 1e-5, f"lm_parity: embeddings differ by {d_emb}")
-    check(same_tokens, "lm_parity: greedy tokens differ")
+    for name in LM_PARITY_CONFIGS:
+        cfg = dataclasses.replace(configs.get_reduced(name),
+                                  dtype=torch.float32,
+                                  param_dtype=torch.float32)
+        p_cpu = init_params(cfg, torch.Generator().manual_seed(SEED),
+                            device="cpu")
+        p_gpu = {k: ([{n: t.cuda() for n, t in layer.items()} for layer in v]
+                     if k == "layers" else v.cuda())
+                 for k, v in p_cpu.items()}
+        gen = torch.Generator().manual_seed(SEED + 8)
+        toks = torch.randint(0, cfg.vocab, (4, 64), generator=gen)
+        res = {}
+        for dev, p in (("cuda", p_gpu), ("cpu", p_cpu)):
+            t = toks.to(dev)
+            logits, aux = forward(cfg, p, {"tokens": t})
+            emb = embed_corpus(cfg, p, t, block=3)
+            out, _ = generate(cfg, p, t[:, :16], max_new=16, max_len=32)
+            res[dev] = (logits.cpu(), aux.cpu(), emb.cpu(), out.cpu())
+        d_logits = (res["cuda"][0] - res["cpu"][0]).abs().max().item()
+        d_aux = (res["cuda"][1] - res["cpu"][1]).abs().item()
+        d_emb = (res["cuda"][2] - res["cpu"][2]).abs().max().item()
+        same_tokens = torch.equal(res["cuda"][3], res["cpu"][3])
+        emit({"phase": "lm_parity", "config": cfg.name,
+              "logits_max_abs": d_logits, "moe_aux": res["cpu"][1].item(),
+              "moe_aux_abs": d_aux, "embed_max_abs": d_emb,
+              "greedy_tokens_equal": same_tokens})
+        check(d_logits <= 1e-4, f"lm_parity {name}: logits differ by "
+              f"{d_logits}")
+        check(d_aux <= 1e-6, f"lm_parity {name}: moe_aux differs by {d_aux}")
+        check(d_emb <= 1e-5, f"lm_parity {name}: embeddings differ by "
+              f"{d_emb}")
+        check(same_tokens, f"lm_parity {name}: greedy tokens differ")
 
 
 def phase_lm(torch) -> dict:
-    """The three LM phases on one full-width model; returns the embedding
-    path's launch counts."""
+    """The gemma3-1b phases on one full-width model, then every REDUCED
+    config's parity; returns the embedding path's launch counts."""
     from repro_torch.configs import gemma3_1b
-    from repro_torch.models import init_params
     cfg = gemma3_1b.CONFIG
-    t = time.perf_counter()
-    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
-    torch.cuda.synchronize()
-    n_params = sum(t_.numel() for layer in params["layers"]
-                   for t_ in layer.values()) \
-        + sum(v.numel() for k, v in params.items() if k != "layers")
-    emit({"phase": "lm_init", "model": cfg.name, "params": n_params,
-          "layers": cfg.n_layers, "d_model": cfg.d_model,
-          "heads": [cfg.n_heads, cfg.n_kv_heads], "head_dim": cfg.hd,
-          "vocab": cfg.vocab, "dtype": str(cfg.dtype),
-          "seconds": time.perf_counter() - t})
+    params = lm_init(torch, cfg)
     launches, toks = phase_lm_embed(torch, cfg, params)
     phase_lm_generate(torch, cfg, params, toks)
     del params, toks
     torch.cuda.empty_cache()
     phase_lm_parity(torch)
     return launches
+
+
+# The MoE path: olmoe-1b-7b at full width and depth (16 layers, d 2,048,
+# 16 / 16 heads of 128, 64 experts of d_ff 1,024, top-8, capacity factor
+# 1.25, vocab 50,304, bf16, 6.9 B parameters), random weights from
+# torch.Generator(SEED): it embeds LM_MOE_DOCS sequences of LM_SEQ tokens
+# in blocks of LM_BLOCK (capacity 20,481 a block), then generates, and
+# decode is held to forward at capacity factor num_experts / top_k = 8,
+# where nothing drops (decode runs the MoE on the step's 8 tokens, cap 2
+# at 1.25, forward on 1,280, cap 201: other assignments drop)
+LM_MOE_DOCS = 1024
+
+
+def phase_lm_moe(torch) -> dict:
+    import dataclasses
+    from repro_torch.configs import olmoe_1b_7b
+    cfg = olmoe_1b_7b.CONFIG
+    params = lm_init(torch, cfg)
+    launches, toks = phase_lm_embed(torch, cfg, params, phase="lm_moe",
+                                    docs=LM_MOE_DOCS, seed=SEED + 9)
+    mo = cfg.moe
+    nodrop = dataclasses.replace(cfg, moe=dataclasses.replace(
+        mo, capacity_factor=mo.num_experts / mo.top_k))
+    phase_lm_generate(torch, cfg, params, toks, phase="lm_moe",
+                      check_cfg=nodrop)
+    del params, toks
+    torch.cuda.empty_cache()
+    return launches
+
+
+# The MLA path: deepseek-v3-671b at full width (d 7,168, 128 heads of MLA
+# with q_lora 1,536, kv_lora 512, rope 64, nope 128, v 128; 256 experts of
+# d_ff 2,048, top-8, 1 shared; vocab 129,280; bf16) with its depth cut
+# from 61 layers to 2: one mla_dense prefix layer (d_ff 18,432) and one
+# mla_moe layer, 14 B parameters (671 B do not fit on one card).  Forward
+# on 2 x 512 tokens, generate 2 prompts of 32 + 8 tokens, the absorbed
+# decode against forward at capacity factor 32 (= 256 / 8: nothing drops).
+# MLA attends by fp32 einsums in both packages: no attention kernel runs.
+LM_MLA_LAYERS, LM_MLA_BATCH, LM_MLA_SEQ = 2, 2, 512
+
+
+def phase_lm_mla(torch) -> dict:
+    import dataclasses
+    from repro_torch.configs import deepseek_v3_671b
+    from repro_torch.models import forward
+    full = deepseek_v3_671b.CONFIG
+    cfg = dataclasses.replace(full, n_layers=LM_MLA_LAYERS, dense_prefix=1)
+    emit({"phase": "lm_mla", "model": full.name,
+          "cut": f"depth {full.n_layers} -> {cfg.n_layers} layers: one "
+                 f"mla_dense prefix layer (d_ff {cfg.dense_prefix_d_ff}) "
+                 f"and one mla_moe layer ({cfg.moe.num_experts} experts, "
+                 f"top-{cfg.moe.top_k}, {cfg.moe.num_shared} shared); the "
+                 "671 B parameters of 61 layers do not fit on one card"})
+    params = lm_init(torch, cfg)
+    toks, _ = lm_corpus(torch, LM_MLA_BATCH, LM_MLA_SEQ, LM_CLASSES,
+                        cfg.vocab, SEED + 10)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    fwd_s = []
+    for _ in range(2):           # the first call includes cuBLAS's set-up
+        t = time.perf_counter()
+        (logits, aux), _, drops = routed(
+            torch, lambda: forward(cfg, params, {"tokens": toks}),
+            keep=False)
+        torch.cuda.synchronize()
+        fwd_s.append(time.perf_counter() - t)
+    launches = read_launches()
+    check(launches["flash_attention"] == 0,
+          f"lm_mla: flash_attention launched {launches['flash_attention']} "
+          "times: MLA attends by einsums")
+    check(logits.shape == (LM_MLA_BATCH, LM_MLA_SEQ, cfg.vocab)
+          and bool(torch.isfinite(logits).all()),
+          f"lm_mla: logits {tuple(logits.shape)} or not finite")
+    check(math.isfinite(aux.item()) and aux.item() > 0,
+          f"lm_mla: moe_aux {aux.item()}")
+    assigned, dropped = drops
+    emit({"phase": "lm_mla", "model": cfg.name, "layers": cfg.n_layers,
+          "batch": LM_MLA_BATCH, "seq": LM_MLA_SEQ, "forward_seconds": fwd_s,
+          "tokens_per_s": LM_MLA_BATCH * LM_MLA_SEQ / fwd_s[1],
+          "moe_aux": aux.item(), "moe_assignments": assigned,
+          "moe_dropped_share": dropped / assigned,
+          "peak_device_bytes_forward": torch.cuda.max_memory_allocated()})
+    del logits
+    profile_call(torch, "lm_mla (forward, 2 x 512 tokens)",
+                 lambda: forward(cfg, params, {"tokens": toks}),
+                 groups={"matmul": MATMUL_KERNELS}, spans=MOE_SPANS)
+    mo = cfg.moe
+    nodrop = dataclasses.replace(cfg, moe=dataclasses.replace(
+        mo, capacity_factor=mo.num_experts / mo.top_k))
+    phase_lm_generate(torch, cfg, params, toks, phase="lm_mla", prompts=2,
+                      prompt_len=32, new=8, max_len=40, check_cfg=nodrop)
+    del params, toks
+    torch.cuda.empty_cache()
+    return launches
+
+
+# The three dense configs at full width and depth in bf16, one at a time:
+# forward on LM_DENSE_BATCH x LM_DENSE_SEQ tokens (one flash_attention
+# launch a layer: the wgmma design at head dim 64 for tinyllama-1.1b, 128
+# for qwen3-8b and phi4-mini-3.8b), generate and decode against forward;
+# tinyllama also embeds LM_TINY_DOCS sequences of LM_SEQ tokens
+LM_DENSE_CONFIGS = ("tinyllama-1.1b", "qwen3-8b", "phi4-mini-3.8b")
+LM_DENSE_BATCH, LM_DENSE_SEQ, LM_TINY_DOCS = 4, 1024, 256
+
+
+def phase_lm_dense_configs(torch) -> dict:
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import forward
+    total = {}
+    for name in LM_DENSE_CONFIGS:
+        cfg = configs.get_config(name)
+        params = lm_init(torch, cfg)
+        toks, _ = lm_corpus(torch, LM_DENSE_BATCH, LM_DENSE_SEQ, LM_CLASSES,
+                            cfg.vocab, SEED + 11)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t = time.perf_counter()
+        logits, aux = forward(cfg, params, {"tokens": toks})
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t
+        launches = read_launches()
+        designs = dict(fa.design_launches)
+        launches["flash_attention_by_design"] = designs
+        check(launches["flash_attention"] == cfg.n_layers
+              and designs == {"wgmma": cfg.n_layers, "mma": 0, "fma": 0},
+              f"lm_dense_configs {name}: flash_attention launches by design "
+              f"{designs}: all {cfg.n_layers} should be the tensor-core "
+              f"design at head dim {cfg.hd}")
+        check(logits.shape == (LM_DENSE_BATCH, LM_DENSE_SEQ, cfg.vocab)
+              and bool(torch.isfinite(logits).all()) and aux.item() == 0.0,
+              f"lm_dense_configs {name}: logits {tuple(logits.shape)}, "
+              f"aux {aux.item()}")
+        emit({"phase": "lm_dense_configs", "model": name,
+              "head_dim": cfg.hd, "heads": [cfg.n_heads, cfg.n_kv_heads],
+              "layers": cfg.n_layers, "batch": LM_DENSE_BATCH,
+              "seq": LM_DENSE_SEQ, "forward_seconds": fwd_s,
+              "tokens_per_s": LM_DENSE_BATCH * LM_DENSE_SEQ / fwd_s,
+              "flash_attention_launches_by_design": designs,
+              "peak_device_bytes_forward": torch.cuda.max_memory_allocated()})
+        add_launches(total, launches)
+        del logits
+        phase_lm_generate(torch, cfg, params, toks, phase="lm_dense_configs",
+                          prompts=4, prompt_len=32, new=16, max_len=48)
+        if name == "tinyllama-1.1b":
+            more, _ = phase_lm_embed(torch, cfg, params,
+                                     phase="lm_dense_configs",
+                                     docs=LM_TINY_DOCS, seed=SEED + 12,
+                                     cluster=False)
+            add_launches(total, more)
+        del params, toks
+        torch.cuda.empty_cache()
+    return total
 
 
 # The training path (launch/train.py::train_loop) at gemma3-1b's full
@@ -4269,6 +4768,9 @@ def main() -> int:
     by_path.update(phase_e2e_learned(torch))
     by_path.update(phase_e2e_jaccard(torch))
     by_path["lm_embed"] = phase_lm(torch)
+    by_path["lm_moe"] = phase_lm_moe(torch)
+    by_path["lm_mla"] = phase_lm_mla(torch)
+    by_path["lm_dense_configs"] = phase_lm_dense_configs(torch)
     by_path.update(phase_train(torch))
     by_path.update(phase_parity(torch, parity_inputs_, worker, started))
     for k in kernels:

@@ -27,7 +27,8 @@ ARCH_NAMES = [
     "jamba-1.5-large-398b",
 ]
 
-PORTED = ("gemma3-1b",)
+PORTED = ("phi4-mini-3.8b", "qwen3-8b", "tinyllama-1.1b", "gemma3-1b",
+          "olmoe-1b-7b", "deepseek-v3-671b")
 
 SHAPES = {
     # name: (seq_len, global_batch, step kind)

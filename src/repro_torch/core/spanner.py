@@ -6,7 +6,8 @@ and provides the spanner-level queries used by the paper's evaluation:
 one-hop / two-hop neighbour recall, degree capping ("keep the 250 closest
 points for each node", §5), and CSR adjacency for the clustering algorithms.
 
-Everything here is plain numpy: at benchmark scale (n <= ~10^5) this is the
+The compaction runs in torch where its inputs lie (on the card for an
+accumulator's slabs); the queries are plain numpy: at benchmark scale (n <= ~10^5) this is the
 equivalent of the paper's final "write edges" MapReduce stage, and at
 tera-scale it would itself be a data-parallel pass (it is embarrassingly
 parallel over edge shards).
@@ -18,6 +19,17 @@ import dataclasses
 from typing import Dict, Optional, Tuple
 
 import numpy as np
+import torch
+
+
+def _flat(a, device) -> torch.Tensor:
+    """``a`` as a flat tensor, on ``device`` where one is given (a numpy
+    array becomes a CPU tensor over its memory where it can)."""
+    if not isinstance(a, torch.Tensor):
+        a = np.ascontiguousarray(a)
+        a = torch.from_numpy(a if a.flags.writeable else a.copy())
+    a = a.reshape(-1)
+    return a if device is None else a.to(device)
 
 
 @dataclasses.dataclass
@@ -45,20 +57,36 @@ class Graph:
         Duplicate (u, v) pairs keep their maximum weight (repetitions of the
         same true similarity may differ only through masking, but learned
         measures can be asymmetric in float error; max is deterministic).
+        The inputs are numpy arrays or tensors; the compaction runs where
+        they lie (tensors on the card: their sorts run there and only the
+        kept edges, 12 bytes each, are fetched).  The pairs are sorted by
+        the packed (min, max) key and, among a key's copies, by weight
+        descending (two stable sorts, ``np.lexsort((-w, key))``'s order),
+        and the first copy of each key is kept.  (On the card a key whose
+        copies weigh 0.0 and -0.0 may keep the other sign: its radix sort
+        orders the two.)
         """
-        src = np.asarray(src).ravel()
-        dst = np.asarray(dst).ravel()
-        w = np.asarray(w, np.float32).ravel()
-        valid = np.asarray(valid, bool).ravel()
+        src = _flat(src, None)
+        dev = src.device
+        dst, valid = _flat(dst, dev), _flat(valid, dev).to(torch.bool)
+        w = _flat(w, dev).to(torch.float32)
         keep = valid & (src >= 0) & (dst >= 0) & (src != dst)
-        src, dst, w = src[keep].astype(np.int64), dst[keep].astype(np.int64), w[keep]
-        lo, hi = np.minimum(src, dst), np.maximum(src, dst)
-        key = lo * np.int64(n) + hi
-        order = np.lexsort((-w, key))
-        key, w = key[order], w[order]
-        first = np.ones(key.shape[0], bool)
+        src, dst, w = src[keep], dst[keep], w[keep]
+        del keep, valid
+        key = (torch.minimum(src, dst).to(torch.int64) * n
+               + torch.maximum(src, dst))
+        del src, dst
+        order = torch.sort(-w, stable=True).indices
+        key = key[order]
+        key, by_key = torch.sort(key, stable=True)
+        order = order[by_key]
+        del by_key
+        w = w[order]
+        del order
+        first = torch.ones_like(key, dtype=torch.bool)
         first[1:] = key[1:] != key[:-1]
-        key, w = key[first], w[first]
+        key = key[first].cpu().numpy()
+        w = w[first].cpu().numpy()
         return Graph(n=n, src=key // n, dst=key % n, w=w,
                      stats=dict(stats or {}))
 
@@ -67,20 +95,20 @@ class Graph:
                           stats: Optional[Dict[str, float]] = None) -> "Graph":
         """Compact per-node top-k degree slabs into a deduplicated Graph.
 
-        This is the single host-side pass of an accumulator build
+        This is the single edge pass of an accumulator build
         (graph/accumulator.py): ``nbr``/``w`` are (n, k) per-node tables
-        (-1 / -inf on empty slots); an edge appears in the result iff it sits
-        in at least one endpoint's slab.  Duplicates (an edge present in both
+        (-1 / -inf on empty slots), numpy arrays or tensors, compacted
+        where they lie; an edge appears in the result iff it sits in at
+        least one endpoint's slab.  Duplicates (an edge present in both
         endpoints' slabs) keep their max weight via ``from_candidates``.
         """
-        nbr = np.asarray(nbr)
-        w = np.asarray(w, np.float32)
         k = nbr.shape[1]
-        node = np.repeat(np.arange(n, dtype=np.int64), k)
-        nbr_f = nbr.ravel().astype(np.int64)
-        w_f = w.ravel()
-        valid = (nbr_f >= 0) & np.isfinite(w_f)
-        return Graph.from_candidates(n, node, nbr_f, w_f, valid, stats)
+        nbr = _flat(nbr, None)
+        w = _flat(w, nbr.device)
+        node = torch.arange(n, dtype=torch.int32, device=nbr.device) \
+            .repeat_interleave(k)
+        valid = (nbr >= 0) & torch.isfinite(w)
+        return Graph.from_candidates(n, node, nbr, w, valid, stats)
 
     def merged_with(self, other: "Graph") -> "Graph":
         """The union of two graphs on the same points (max weight on a

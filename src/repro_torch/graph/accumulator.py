@@ -6,7 +6,7 @@ is folded in by :func:`accumulate`: doubled (one instance per endpoint),
 deduplicated and bucketed into per-node candidate rows with device sorts,
 then merged into the slabs by ``topk_merge`` (the CUDA kernel on the card,
 the plain version on the CPU).  The host sees edges once per build, in
-:func:`to_graph`.
+:func:`to_graph`, compacted on the device first.
 
 Where the JAX package sorts on several operands at once, the port packs
 keys into one int64 or chains stable sorts; ``.at[...].set(mode="drop")``
@@ -248,11 +248,13 @@ def _fold_triples(state: EdgeAccumulator, node: torch.Tensor,
 
 def to_graph(state: EdgeAccumulator, *,
              stats: Optional[Dict[str, float]] = None):
-    """THE device-to-host edge transfer: fetch slabs once, compact to a Graph."""
+    """THE device-to-host edge transfer: ``Graph.from_degree_slabs`` on
+    the slabs where they lie, so that only the deduplicated edges cross.
+    ``bytes`` counts the slab bytes it reads, as the JAX package counts
+    the slabs it fetches."""
     from repro_torch.core.spanner import Graph
 
-    nbr = state.nbr.cpu().numpy()
-    w = state.w.cpu().numpy()
     transfer_stats["edge_fetches"] += 1
-    transfer_stats["bytes"] += nbr.nbytes + w.nbytes
-    return Graph.from_degree_slabs(state.n, nbr, w, stats=stats)
+    transfer_stats["bytes"] += (state.nbr.numel() * state.nbr.element_size()
+                                + state.w.numel() * state.w.element_size())
+    return Graph.from_degree_slabs(state.n, state.nbr, state.w, stats=stats)

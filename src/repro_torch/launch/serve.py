@@ -96,7 +96,9 @@ def generate(cfg: ModelConfig, params, prompt, *, max_new: int = 32,
 def embed_corpus(cfg: ModelConfig, params, tokens, block: int = 64
                  ) -> torch.Tensor:
     """Mean-pooled final hidden states as document embeddings (B, d),
-    fp32, ``block`` sequences at a time."""
+    fp32, ``block`` sequences at a time (the last block may be shorter).
+    For a MoE model the block is part of the function: its tokens set
+    each expert's capacity, as in the JAX package."""
     dev = _device(params)
     tokens = as_tensor(tokens, device=dev).to(torch.int64)
     plan = layer_plan(cfg)
@@ -104,8 +106,8 @@ def embed_corpus(cfg: ModelConfig, params, tokens, block: int = 64
     outs = []
     for a in range(0, tokens.shape[0], block):
         x = params["embed"][tokens[a:a + block]].to(cfg.dtype)
-        h = _run_stack(plan, cfg, params["layers"], x,
-                       {"positions": positions})
+        h, _ = _run_stack(plan, cfg, params["layers"], x,
+                          {"positions": positions})
         h = rms_norm(h, params["norm_f"], cfg.norm_eps)
         outs.append(h.to(torch.float32).mean(dim=1))
     return torch.cat(outs, dim=0)

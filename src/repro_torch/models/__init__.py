@@ -1,5 +1,6 @@
-"""The LM substrate of the port (``repro.models``): dense GQA decoder
-stacks with sliding-window and global layers, forward and cached decode."""
+"""The LM substrate of the port (``repro.models``): decoder stacks of
+GQA attention (sliding-window and global layers) or DeepSeek MLA, with
+dense SwiGLU or MoE FFNs; forward and cached decode."""
 
 from repro_torch.models.common import MambaConfig, MoEConfig, ModelConfig
 from repro_torch.models.stack import (

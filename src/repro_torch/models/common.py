@@ -46,8 +46,9 @@ class MambaConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """One architecture; the fields and defaults of the JAX package's
-    ``ModelConfig``, with torch dtypes.  Only the dense flavour runs in
-    the port so far (``models/stack.py``); the other fields are data."""
+    ``ModelConfig``, with torch dtypes.  The dense, MoE and MLA flavours
+    run in the port (``models/stack.py``); the Mamba, RWKV and
+    cross-attention fields are data so far."""
 
     name: str
     kind: str                      # dense | moe | vlm | audio | ssm | hybrid

@@ -2,8 +2,14 @@
 
 The JAX package's ``init_params(cfg, key)[0]`` is a nested dict: ``embed``,
 ``norm_f``, ``unembed`` (unless tied) and, per plan group ``gi`` and
-sub-block ``si``, ``g{gi}/s{si}/{attn_wq, ..., ffn_down, norm1, norm2}``
-stacked with leading (repeat_outer, repeat_inner) axes.  The port holds
+sub-block ``si``, ``g{gi}/s{si}/{norm1, norm2, ...}`` stacked with leading
+(repeat_outer, repeat_inner) axes: ``attn_*`` (GQA) or ``mla_*`` (MLA:
+``wq_a``, ``q_norm``, ``wq_b``, ``wkv_a``, ``kv_norm``, ``wk_b``,
+``wv_b``, ``wo``), and ``ffn_*`` (dense) or ``moe_*`` (``router``, the
+(E, in, out) expert stacks ``wg``, ``wu``, ``wd`` and, with shared
+experts, ``sh_wg``, ``sh_wu``, ``sh_wd``).  deepseek-v3's plan has two
+groups, the dense-prefix layers under ``g0`` and the MoE layers under
+``g1``; the mapping is the same leaf for leaf.  The port holds
 the same weights with ``layers`` a list of per-layer dicts in execution
 order (``models/stack.py``).  Weights stay (in, out) in both, so
 ``x @ w`` is the same product.  Arrays cross as numpy arrays, such as

@@ -6,6 +6,8 @@ groups ``(repeat_outer, [(repeat_inner, BlockDef), ...])``, e.g.
 
   tinyllama   [(1, [(22, dense)])]
   gemma3-1b   [(4, [(5, local), (1, global)]), (1, [(2, local)])]
+  olmoe-1b-7b [(1, [(16, moe)])]
+  deepseek-v3 [(1, [(3, mla_dense)]), (1, [(58, mla_moe)])]
 
 The JAX package stacks each run of identical blocks under
 ``g{gi}/s{si}`` with leading (outer, inner) axes and runs them with
@@ -20,12 +22,19 @@ wraps each block in ``torch.utils.checkpoint`` when grad mode is on, so
 that training keeps one block's activations at a time and recomputes the
 rest in the backward; with grad mode off (serving) nothing changes.
 
+Block flavours: ``dense`` and ``moe`` (GQA attention with a SwiGLU or
+MoE FFN), ``mla_dense`` and ``mla_moe`` (DeepSeek MLA with either FFN;
+the dense-prefix layers take ``BlockDef.d_ff``).  Each block returns the
+MoE load-balance loss beside its output (0 for a dense FFN), and
+``_run_stack`` sums it over the layers in fp32.
+
 Not ported, with the reason:
   * ``constrain`` (``distributed/activation_sharding.py``) pins
     activation shardings on a mesh; on one device it is the identity.
-  * Block flavours other than ``dense`` (MoE, MLA, Mamba, RWKV, cross
-    attention, the encoder) raise ``NotImplementedError`` until their
-    slice.
+  * The flavours ``rwkv`` (RWKV-6), ``mamba_dense`` / ``mamba_moe``
+    (Jamba), ``cross_dense`` / ``self_cross_dense`` (cross attention) and
+    the encoder stack (``encoder_plan``, ``encode``) raise
+    ``NotImplementedError`` until their slice.
 """
 
 from __future__ import annotations
@@ -38,6 +47,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import mla as mla_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import (ModelConfig, ParamInit,
                                        apply_dense_ffn, init_dense_ffn,
                                        rms_norm)
@@ -127,19 +138,22 @@ def layer_stacks(cfg: ModelConfig) -> List[Tuple[int, int]]:
             for _ in range(ri)]
 
 
+PORTED_FLAVOURS = ("dense", "moe", "mla_dense", "mla_moe")
+
+
 def _check_ported(cfg: ModelConfig) -> None:
     if cfg.encoder_layers:
         raise NotImplementedError(
             "the encoder stack is not ported to repro_torch yet")
     for bd in layer_defs(layer_plan(cfg)):
-        if bd.flavor != "dense":
+        if bd.flavor not in PORTED_FLAVOURS:
             raise NotImplementedError(
                 f"block flavour {bd.flavor!r} ({cfg.name}) is not ported to "
-                "repro_torch yet; only 'dense' is")
+                f"repro_torch yet; ported: {', '.join(PORTED_FLAVOURS)}")
 
 
 # --------------------------------------------------------------------------- #
-# Block init / apply / cache / decode (dense flavour)
+# Block init / apply / cache / decode
 # --------------------------------------------------------------------------- #
 
 
@@ -148,25 +162,47 @@ def _init_block(bd: BlockDef, cfg: ModelConfig, gen: torch.Generator,
     init = ParamInit(gen, cfg.param_dtype, device)
     init.zeros("norm1", (cfg.d_model,))
     init.zeros("norm2", (cfg.d_model,))
-    attn_lib.init_attn(init, cfg, prefix="attn")
-    init_dense_ffn(init, cfg, bd.d_ff or cfg.d_ff, prefix="ffn")
+    if bd.flavor.startswith("mla"):
+        mla_lib.init_mla(init, cfg, prefix="mla")
+    else:
+        attn_lib.init_attn(init, cfg, prefix="attn")
+    if bd.flavor.endswith("moe"):
+        moe_lib.init_moe(init, cfg, prefix="moe")
+    else:
+        init_dense_ffn(init, cfg, bd.d_ff or cfg.d_ff, prefix="ffn")
     return init.values
 
 
+def _ffn(bd: BlockDef, cfg: ModelConfig, p: Dict[str, torch.Tensor],
+         x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The block's FFN on the normed x: (out, MoE aux loss)."""
+    if bd.flavor.endswith("moe"):
+        return moe_lib.moe_ffn(p, cfg, x, prefix="moe")
+    return (apply_dense_ffn(p, x, prefix="ffn"),
+            torch.zeros((), dtype=torch.float32, device=x.device))
+
+
 def _apply_block(bd: BlockDef, cfg: ModelConfig, p: Dict[str, torch.Tensor],
-                 x: torch.Tensor, ctx: Dict[str, Any]) -> torch.Tensor:
-    """Full-sequence forward of one dense block."""
+                 x: torch.Tensor, ctx: Dict[str, Any]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward of one block: (x, moe_aux)."""
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    x = x + attn_lib.attn_fwd(p, cfg, h, positions=ctx["positions"],
-                              causal=True, window=bd.window,
-                              rope_theta=bd.rope_theta, prefix="attn")
-    h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
-    return x + apply_dense_ffn(p, h2, prefix="ffn")
+    if bd.flavor.startswith("mla"):
+        x = x + mla_lib.mla_fwd(p, cfg, h, positions=ctx["positions"],
+                                prefix="mla")
+    else:
+        x = x + attn_lib.attn_fwd(p, cfg, h, positions=ctx["positions"],
+                                  causal=True, window=bd.window,
+                                  rope_theta=bd.rope_theta, prefix="attn")
+    out, aux = _ffn(bd, cfg, p, rms_norm(x, p["norm2"], cfg.norm_eps))
+    return x + out, aux
 
 
 def _init_block_cache(bd: BlockDef, cfg: ModelConfig, batch: int,
                       max_len: int, device: torch.device
                       ) -> Dict[str, torch.Tensor]:
+    if bd.flavor.startswith("mla"):
+        return mla_lib.init_mla_cache(cfg, batch, max_len, device=device)
     return attn_lib.init_kv_cache(cfg, batch, max_len, window=bd.window,
                                   device=device)
 
@@ -174,13 +210,18 @@ def _init_block_cache(bd: BlockDef, cfg: ModelConfig, batch: int,
 def _decode_block(bd: BlockDef, cfg: ModelConfig, p: Dict[str, torch.Tensor],
                   x: torch.Tensor, cache: Dict[str, torch.Tensor], pos: int
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One-token decode of one block; a MoE FFN runs on the B tokens of
+    the step, so its capacity is the step's, as in the JAX package."""
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    out, cache = attn_lib.attn_decode(p, cfg, h, cache, pos,
-                                      window=bd.window,
-                                      rope_theta=bd.rope_theta)
+    if bd.flavor.startswith("mla"):
+        out, cache = mla_lib.mla_decode(p, cfg, h, cache, pos, prefix="mla")
+    else:
+        out, cache = attn_lib.attn_decode(p, cfg, h, cache, pos,
+                                          window=bd.window,
+                                          rope_theta=bd.rope_theta)
     x = x + out
-    h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
-    return x + apply_dense_ffn(p, h2, prefix="ffn"), cache
+    out, _ = _ffn(bd, cfg, p, rms_norm(x, p["norm2"], cfg.norm_eps))
+    return x + out, cache
 
 
 # --------------------------------------------------------------------------- #
@@ -208,18 +249,20 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
 
 def _run_stack(plan: List[Group], cfg: ModelConfig,
                layers: List[Dict[str, torch.Tensor]], x: torch.Tensor,
-               ctx: Dict[str, Any]) -> torch.Tensor:
+               ctx: Dict[str, Any]) -> Tuple[torch.Tensor, torch.Tensor]:
     """Apply the plan's layers in order to x: (B, S, d); each block
     rematerialised in the backward when ``cfg.remat`` and grad mode is
-    on."""
+    on.  Returns (x, the MoE aux loss summed over the layers in fp32)."""
     remat = cfg.remat and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for bd, p in zip(layer_defs(plan), layers, strict=True):
         if remat:
-            x = checkpoint(_apply_block, bd, cfg, p, x, ctx,
-                           use_reentrant=False)
+            x, a = checkpoint(_apply_block, bd, cfg, p, x, ctx,
+                              use_reentrant=False)
         else:
-            x = _apply_block(bd, cfg, p, x, ctx)
-    return x
+            x, a = _apply_block(bd, cfg, p, x, ctx)
+        aux = aux + a
+    return x, aux
 
 
 def _unembed(cfg: ModelConfig, params: Dict[str, Any]) -> torch.Tensor:
@@ -232,21 +275,21 @@ def forward(cfg: ModelConfig, params: Dict[str, Any],
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward -> (logits (B, S, vocab), moe_aux).
 
-    ``moe_aux`` is the MoE load-balancing loss of the JAX package, 0 for
-    the dense flavour."""
+    ``moe_aux`` is the MoE load-balance loss summed over the layers, 0
+    for a model without MoE layers."""
     _check_ported(cfg)
     tokens = batch["tokens"]
     x = params["embed"][tokens].to(cfg.dtype)
     ctx = {"positions": torch.arange(tokens.shape[1], device=x.device)}
-    x = _run_stack(layer_plan(cfg), cfg, params["layers"], x, ctx)
+    x, aux = _run_stack(layer_plan(cfg), cfg, params["layers"], x, ctx)
     x = rms_norm(x, params["norm_f"], cfg.norm_eps)
-    logits = x @ _unembed(cfg, params)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x @ _unembed(cfg, params), aux
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device: DeviceLike = None) -> List[Dict[str, torch.Tensor]]:
-    """Decode cache: one {"k", "v"} dict per layer, in layer order."""
+    """Decode cache, one dict per layer in layer order: {"k", "v"} for
+    GQA attention, {"ckv", "krope"} (the latent) for MLA."""
     _check_ported(cfg)
     dev = resolve_device(device)
     return [_init_block_cache(bd, cfg, batch, max_len, dev)

@@ -108,3 +108,38 @@ def test_create_and_transfer_stats():
     assert g.num_edges == 0
     assert t_acc.transfer_stats["edge_fetches"] == 1
     assert t_acc.transfer_stats["bytes"] == 5 * 3 * 8
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_to_graph_equals_the_jax_host_pass(seed):
+    """The slabs compacted where they lie (torch sorts) give JAX's
+    ``to_graph`` (``Graph.from_degree_slabs`` in numpy) edge for edge:
+    empty slots, self loops and non-finite weights dropped, an edge in
+    both endpoints' slabs kept once at its larger weight, equal weights
+    on a key kept once."""
+    rs = np.random.RandomState(seed)
+    n, k = 40, 7
+    nbr = rs.randint(-1, n, (n, k)).astype(np.int32)
+    w = rs.choice(np.float32([0.25, 0.5, 0.75, -0.5]), (n, k))
+    w[rs.rand(n, k) < 0.1] = -np.inf
+    w[rs.rand(n, k) < 0.05] = np.nan
+    # mirror some entries so that an edge sits in both endpoints' slabs
+    for i, j in zip(*np.nonzero(rs.rand(n, k) < 0.3)):
+        v = nbr[i, j]
+        if v >= 0:
+            nbr[v, j], w[v, j] = i, w[i, j] + np.float32(0.125) * rs.randint(2)
+    state = t_acc.from_host(nbr, w, np.zeros(n, np.int32), device="cpu")
+    t_acc.reset_transfer_stats()
+    got = t_acc.to_graph(state, stats={"comparisons": 3})
+    j_acc.reset_transfer_stats()
+    want = j_acc.to_graph(j_acc.EdgeAccumulator(
+        nbr=jnp.asarray(nbr), w=jnp.asarray(w),
+        ver=jnp.zeros(n, jnp.int32)), stats={"comparisons": 3})
+    assert got.n == want.n and got.stats == want.stats
+    assert got.num_edges > 0
+    for name in ("src", "dst", "w"):
+        a, b = getattr(got, name), getattr(want, name)
+        assert a.dtype == b.dtype, name
+        np.testing.assert_array_equal(a, b, err_msg=name)
+    assert t_acc.transfer_stats["edge_fetches"] == 1
+    assert t_acc.transfer_stats["bytes"] == n * k * 8

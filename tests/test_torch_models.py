@@ -90,8 +90,27 @@ def test_gemma3_configs_equal_jax():
     assert t_configs.SHAPES == j_configs.SHAPES
 
 
-@pytest.mark.parametrize("name", [n for n in j_configs.ARCH_NAMES
+@pytest.mark.parametrize("name", [n for n in t_configs.PORTED
                                   if n != "gemma3-1b"])
+def test_ported_configs_equal_jax(name):
+    """CONFIG, REDUCED and ARCH of every other ported architecture equal
+    the JAX package's (gemma3-1b's: the test above)."""
+    assert t_configs.get_config(name) \
+        == _to_torch_cfg(j_configs.get_config(name))
+    assert t_configs.get_reduced(name) \
+        == _to_torch_cfg(j_configs.get_reduced(name))
+    assert dataclasses.asdict(t_configs.get_arch(name)) \
+        == dataclasses.asdict(j_configs.get_arch(name))
+
+
+def test_ported_architectures():
+    assert set(t_configs.PORTED) == {
+        "gemma3-1b", "tinyllama-1.1b", "qwen3-8b", "phi4-mini-3.8b",
+        "olmoe-1b-7b", "deepseek-v3-671b"}
+
+
+@pytest.mark.parametrize("name", [n for n in j_configs.ARCH_NAMES
+                                  if n not in t_configs.PORTED])
 def test_unported_architecture_raises(name):
     with pytest.raises(NotImplementedError):
         t_configs.get_config(name)
@@ -109,8 +128,8 @@ def test_layer_plan_equals_jax(name):
 
 
 def test_unported_flavour_raises():
-    cfg = _to_torch_cfg(j_configs.get_reduced("olmoe-1b-7b"))
-    with pytest.raises(NotImplementedError, match="moe"):
+    cfg = _to_torch_cfg(j_configs.get_reduced("rwkv6-3b"))
+    with pytest.raises(NotImplementedError, match="rwkv"):
         init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
 
 
@@ -119,17 +138,35 @@ def test_unported_flavour_raises():
 # --------------------------------------------------------------------------- #
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_params_from_jax_round_trip(dtype):
-    j_cfg = j_gemma.REDUCED if dtype == "bfloat16" else J_REDUCED32
-    t_cfg = t_gemma.REDUCED if dtype == "bfloat16" else T_REDUCED32
+# (architecture, dtype, the layer to spot-check, its JAX stack and
+# (outer, inner) index, a leaf): gemma3 REDUCED is [(2, [(2, local),
+# (1, global)])], so layer 4 is outer repeat 1, sub-block 0, inner repeat
+# 1; olmoe's second layer is g0/s0[0, 1]; deepseek's layers are one
+# mla_dense prefix (g0) and two mla_moe (g1), its third g1/s0[0, 1]
+ROUND_TRIPS = [
+    pytest.param("gemma3-1b", "float32", 4, ("g0", "s0", 1, 1), "attn_wq",
+                 id="float32"),
+    pytest.param("gemma3-1b", "bfloat16", 4, ("g0", "s0", 1, 1), "attn_wq",
+                 id="bfloat16"),
+    pytest.param("olmoe-1b-7b", "bfloat16", 1, ("g0", "s0", 0, 1), "moe_wg",
+                 id="olmoe-1b-7b-bfloat16"),
+    pytest.param("deepseek-v3-671b", "bfloat16", 2, ("g1", "s0", 0, 1),
+                 "mla_wk_b", id="deepseek-v3-671b-bfloat16"),
+]
+
+
+@pytest.mark.parametrize("name,dtype,layer,where,leaf", ROUND_TRIPS)
+def test_params_from_jax_round_trip(name, dtype, layer, where, leaf):
+    j_cfg = j_configs.get_reduced(name)
+    if dtype == "float32":
+        j_cfg = dataclasses.replace(j_cfg, **J_F32)
+    t_cfg = _to_torch_cfg(j_cfg)
     _, values = _jax_params(j_cfg, seed=3)
     params = params_from_jax(values, t_cfg, device="cpu")
-    # gemma3 REDUCED: [(2, [(2, local), (1, global)])], so layer 4 is
-    # outer repeat 1, sub-block 0, inner repeat 1
-    assert len(params["layers"]) == 6
-    want = values["g0"]["s0"]["attn_wq"][1, 1]
-    got = params["layers"][4]["attn_wq"]
+    assert len(params["layers"]) == j_cfg.n_layers
+    g, si, o, i = where
+    want = values[g][si][leaf][o, i]
+    got = params["layers"][layer][leaf]
     assert str(got.dtype) == f"torch.{dtype}"
     np.testing.assert_array_equal(got.float().numpy(),
                                   want.astype(np.float32))
@@ -246,6 +283,37 @@ def test_forward_matches_jax(dtype):
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32), atol=atol,
                                rtol=0)
+
+
+@pytest.mark.parametrize("name", ["tinyllama-1.1b", "qwen3-8b",
+                                  "phi4-mini-3.8b"])
+def test_dense_configs_forward_and_decode_match_jax(name):
+    """The three dense configs at REDUCED in fp32: forward logits, then
+    decode step by step, each against the JAX package's (qwen3 with
+    qk_norm, phi4 with tied embeddings, tinyllama with head dim 8)."""
+    from repro.models import decode_step as j_decode_step
+    from repro.models import init_cache as j_init_cache
+    j_cfg = dataclasses.replace(j_configs.get_reduced(name), **J_F32)
+    t_cfg = _to_torch_cfg(j_cfg)
+    j_params, values = _jax_params(j_cfg, seed=6)
+    params = params_from_jax(values, t_cfg, device="cpu")
+    toks = _tokens(2, 10, t_cfg.vocab, seed=6)
+    got, _ = forward(t_cfg, params, {"tokens": torch.from_numpy(toks)})
+    want, _ = jax.jit(lambda p, t: j_forward(j_cfg, p, {"tokens": t}))(
+        j_params, jnp.asarray(toks))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
+                               rtol=0)
+    step = jax.jit(lambda p, tok, c, pos: j_decode_step(j_cfg, p, tok, c,
+                                                        pos))
+    j_cache = j_init_cache(j_cfg, 2, 10)
+    cache = init_cache(t_cfg, 2, 10, device="cpu")
+    for t in range(10):
+        want, j_cache = step(j_params, jnp.asarray(toks[:, t:t + 1]),
+                             j_cache, jnp.int32(t))
+        lg, cache = decode_step(t_cfg, params,
+                                torch.from_numpy(toks[:, t:t + 1]), cache, t)
+        np.testing.assert_allclose(lg.numpy(), np.asarray(want), atol=1e-4,
+                                   rtol=0, err_msg=f"step {t}")
 
 
 BASE = dict(n_layers=3, d_model=32, n_heads=4, n_kv_heads=2, d_ff=64,
