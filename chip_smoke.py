@@ -907,11 +907,14 @@ FLASH_PATH = (64, 4, 1, 2048, 2048, 256)
 # over 16 KV heads, head dim 128; lm_moe) and the dense configs' forward
 # on 4 x 1,024 tokens (lm_dense_configs): tinyllama-1.1b's (32 over 4,
 # head dim 64), qwen3-8b's (32 over 8, a group of 4) and
-# phi4-mini-3.8b's (24 over 8, a group of 3), head dim 128
+# phi4-mini-3.8b's (24 over 8, a group of 3), head dim 128; and
+# jamba-1.5-large-398b's attention layer on the lm_jamba forward's 2 x
+# 2,048 tokens (64 over 8, a group of 8, head dim 128)
 FLASH_MODEL_CALLS = {"olmoe-1b-7b": (64, 16, 16, 2048, 2048, 128),
                      "tinyllama-1.1b": (4, 32, 4, 1024, 1024, 64),
                      "qwen3-8b": (4, 32, 8, 1024, 1024, 128),
-                     "phi4-mini-3.8b": (4, 24, 8, 1024, 1024, 128)}
+                     "phi4-mini-3.8b": (4, 24, 8, 1024, 1024, 128),
+                     "jamba-1.5-large-398b": (2, 64, 8, 2048, 2048, 128)}
 # sequences a plain-version call at those shapes, so that its fp32 scores
 # (8 x 16 x 2,048 x 2,048 of them) are an eighth of the whole block's
 FLASH_PLAIN_CHUNK = 8
@@ -2951,16 +2954,20 @@ def phase_profile(torch, path, builder) -> None:
     profile_call(torch, path, lambda: builder.add_reps(1))
 
 
-def profile_call(torch, path, fn, groups=None, spans=()) -> dict:
+def profile_call(torch, path, fn, groups=None, spans=(),
+                 op_groups=None) -> dict:
     """Run ``fn`` once under torch.profiler: the device's busy and idle
     share of its wall time (profiler on) and device time by kernel and by
     the PyTorch operator that launched it; ``groups`` maps a group name to
     kernel-name substrings, and kernels in no group sum to "rest";
     ``spans`` names record_function spans of the code, each given the
-    device time of the kernels launched inside it."""
+    device time of the kernels launched inside it; ``op_groups`` maps a
+    group name to PyTorch operators, each group given the device time of
+    the kernels its operators launched themselves."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
+    start = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
@@ -2972,7 +2979,7 @@ def profile_call(torch, path, fn, groups=None, spans=()) -> dict:
     for e in events:
         # a span's own row on the device's timeline is not a kernel
         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0 \
-                and e.key not in MOE_SPANS:
+                and e.key not in CODE_SPANS:
             # kernel names are whole C++ signatures: group by a prefix
             name = e.key[:160]
             kernels[name] = (kernels.get(name, 0.0)
@@ -2992,7 +2999,7 @@ def profile_call(torch, path, fn, groups=None, spans=()) -> dict:
            "device_idle_share": 1.0 - busy_ms / (wall * 1e3),
            "kernel_launches": sum(e.count for e in events
                                   if e.device_type == DeviceType.CUDA
-                                  and e.key not in MOE_SPANS),
+                                  and e.key not in CODE_SPANS),
            "device_ms_by_group": by_group,
            "top_kernels_ms": top(kernels), "top_ops_ms": top(ops)}
     if spans:
@@ -3002,6 +3009,12 @@ def profile_call(torch, path, fn, groups=None, spans=()) -> dict:
         row["span_calls"] = {e.key: e.count for e in events
                              if e.key in spans
                              and e.device_type == DeviceType.CPU}
+    if op_groups:
+        row["device_ms_by_op_group"] = {
+            g: sum(ops.get(op, 0.0) for op in names)
+            for g, names in op_groups.items()}
+    # the call, the trace's collection and its reduction to this row
+    row["profile_seconds"] = time.perf_counter() - start
     emit(row)
     return row
 
@@ -3018,6 +3031,13 @@ MATMUL_KERNELS = ("gemm", "nvjet", "xmma", "cutlass", "cublas")
 # the MoE FFN's stages: record_function spans in models/moe.py
 MOE_SPANS = ("moe.route", "moe.sort", "moe.dispatch", "moe.experts",
              "moe.combine", "moe.shared")
+# the recurrences' loops over time: record_function spans in models/rwkv.py
+# and models/mamba.py
+RECURRENT_SPANS = ("rwkv.scan", "mamba.scan")
+CODE_SPANS = MOE_SPANS + RECURRENT_SPANS
+# the dense products outside the loops (projections, FFNs, the unembed):
+# the loops' own products are batched (aten::bmm)
+MM_OPS = {"matmul": ("aten::mm", "aten::addmm")}
 
 
 def lm_corpus(torch, n, seq, classes, vocab, seed):
@@ -3071,13 +3091,40 @@ def params_to_fp32_(torch, params) -> None:
     torch.cuda.empty_cache()
 
 
+def layer_counts(cfg) -> tuple:
+    """(GQA attention layers, MoE layers, recurrent layers) of ``cfg``."""
+    from repro_torch.models.stack import layer_defs, layer_plan
+    flavours = [bd.flavor for bd in layer_defs(layer_plan(cfg))]
+    return (sum(f in ("dense", "moe") for f in flavours),
+            sum(f.endswith("moe") for f in flavours),
+            sum(f == "rwkv" or f.startswith("mamba") for f in flavours))
+
+
+def recurrent_breakdown(cfg, prof, tokens) -> dict:
+    """A profile's device time in the recurrences' loops (their spans),
+    in the dense products outside them, and the rest; the loops' device
+    time a step of one layer, over ``tokens`` steps a layer."""
+    _, _, n_rec = layer_counts(cfg)
+    loop = sum(prof.get("device_ms_by_span", {}).get(k, 0.0)
+               for k in RECURRENT_SPANS)
+    mm = prof["device_ms_by_op_group"]["matmul"]
+    busy = prof["device_busy_ms"]
+    return {"recurrence_loop_ms": loop, "matmul_outside_loop_ms": mm,
+            "rest_ms": busy - loop - mm,
+            "loop_step_ms": loop / (n_rec * tokens)}
+
+
 def phase_lm_embed(torch, cfg, params, phase="lm_embed", docs=LM_DOCS,
-                   seed=SEED + 7, cluster=True):
+                   seed=SEED + 7, cluster=True, block=LM_BLOCK,
+                   profile_seq=LM_SEQ):
     """embed_corpus at full width (every flash_attention launch on the
     tensor-core design), then, with ``cluster``, the default Stars build
-    over the embeddings and affinity clustering, and one block profiled.
-    For a MoE model, the share of assignments dropped at the config's
-    capacity, and the profile's device time by the dispatch's stages.
+    over the embeddings and affinity clustering, and one block profiled
+    (its sequences cut to ``profile_seq`` tokens).  For a MoE model, the
+    share of assignments dropped at the config's capacity, and the
+    profile's device time by the dispatch's stages; for a recurrent one,
+    the device time in the loops over time, in the products outside them
+    and the rest, and the loop's device time a step.
     Returns the launch counts of the whole path and the corpus."""
     import numpy as np
     from repro_torch import GraphBuilder, PointFeatures, StarsConfig
@@ -3087,21 +3134,21 @@ def phase_lm_embed(torch, cfg, params, phase="lm_embed", docs=LM_DOCS,
     from repro_torch.launch.serve import embed_corpus
     from repro_torch.models import moe as moe_lib
     toks, labels = lm_corpus(torch, docs, LM_SEQ, LM_CLASSES, cfg.vocab, seed)
-    n_layers = cfg.n_layers
-    blocks = -(-docs // LM_BLOCK)
+    n_attn, n_moe, n_rec = layer_counts(cfg)
+    blocks = -(-docs // block)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t = time.perf_counter()
     emb, _, drops = routed(torch, lambda: embed_corpus(
-        cfg, params, toks, block=LM_BLOCK), keep=False)
+        cfg, params, toks, block=block), keep=False)
     torch.cuda.synchronize()
     embed_s = time.perf_counter() - t
     flash = read_launches()["flash_attention"]
     designs = dict(fa.design_launches)
-    check(flash == n_layers * blocks,
+    check(flash == n_attn * blocks,
           f"{phase}: flash_attention launched {flash} times, expected "
-          f"{n_layers * blocks}")
+          f"{n_attn * blocks}")
     check(designs == {"wgmma": flash, "mma": 0, "fma": 0},
           f"{phase}: flash_attention launches by design {designs}: all "
           f"{flash} should be the tensor-core design")
@@ -3110,18 +3157,18 @@ def phase_lm_embed(torch, cfg, params, phase="lm_embed", docs=LM_DOCS,
     check(bool(torch.isfinite(emb).all()), f"{phase}: non-finite embedding")
     peak = torch.cuda.max_memory_allocated()
     row = {"phase": phase, "model": cfg.name, "docs": docs, "seq": LM_SEQ,
-           "block": LM_BLOCK, "head_dim": cfg.hd, "embed_seconds": embed_s,
+           "block": block, "head_dim": cfg.hd, "embed_seconds": embed_s,
            "tokens_per_s": docs * LM_SEQ / embed_s,
            "flash_attention_launches_in_embed": flash,
            "flash_attention_launches_by_design": designs,
            "peak_device_bytes_embed": peak}
     if cfg.moe is not None:
         assigned, dropped = drops
-        check(assigned == docs * LM_SEQ * cfg.moe.top_k * n_layers,
+        check(assigned == docs * LM_SEQ * cfg.moe.top_k * n_moe,
               f"{phase}: {assigned} MoE assignments")
         row.update({"capacity_factor": cfg.moe.capacity_factor,
                     "capacity_a_block": moe_lib.capacity(
-                        cfg.moe, LM_BLOCK * LM_SEQ),
+                        cfg.moe, block * LM_SEQ),
                     "moe_assignments": assigned, "moe_dropped": dropped,
                     "moe_dropped_share": dropped / assigned})
     if not cluster:
@@ -3151,13 +3198,27 @@ def phase_lm_embed(torch, cfg, params, phase="lm_embed", docs=LM_DOCS,
           "comparisons": graph.stats["comparisons"],
           "edges": graph.num_edges, "clusters": int(len(np.unique(pred))),
           "v_measure": v, "launches": launches})
-    profile_call(torch, f"{phase} (one block of {LM_BLOCK} sequences)",
-                 lambda: embed_corpus(cfg, params, toks[:LM_BLOCK],
-                                      block=LM_BLOCK),
-                 groups={"flash_attention": ("flash_attention",),
-                         "matmul": MATMUL_KERNELS},
-                 spans=MOE_SPANS if cfg.moe is not None else ())
+    lm_profile(torch, cfg, f"{phase} (one block of {block} sequences of "
+               f"{profile_seq} tokens)",
+               lambda: embed_corpus(cfg, params, toks[:block, :profile_seq],
+                                    block=block), profile_seq)
     return launches, toks
+
+
+def lm_profile(torch, cfg, path, fn, tokens) -> dict:
+    """``fn`` (an LM call over sequences of ``tokens`` tokens) profiled:
+    device time by kernel group, by the MoE stages and, for a recurrent
+    model, by loop, products and rest (``recurrent_breakdown``)."""
+    _, n_moe, n_rec = layer_counts(cfg)
+    spans = (MOE_SPANS if n_moe else ()) + (RECURRENT_SPANS if n_rec else ())
+    prof = profile_call(torch, path, fn,
+                        groups={"flash_attention": ("flash_attention",),
+                                "matmul": MATMUL_KERNELS},
+                        spans=spans, op_groups=MM_OPS)
+    if n_rec:
+        prof["recurrent"] = recurrent_breakdown(cfg, prof, tokens)
+        emit({"phase": "profile", "path": path, **prof["recurrent"]})
+    return prof
 
 
 # decode against forward at full width in bf16: both round the residual
@@ -3183,6 +3244,9 @@ LM_DECODE_RTOL = 0.05
 # rows before a flip (olmoe measured 1,037 of 1,280) and no more than
 # LM_MOE_FLIP_SHARE of the routing decisions differing.
 LM_MOE_DECODE_FP32_RTOL = 2e-4
+# a model without MoE in fp32 (the same weights cast, IEEE products): the
+# bound the MoE models' rows before a flip are held to
+LM_DECODE_FP32_RTOL = LM_MOE_DECODE_FP32_RTOL
 LM_MOE_FP32_CLEAN_SHARE = 0.5
 LM_MOE_FLIP_SHARE = 1e-3
 LM_MOE_BF16_PREFIX = 32
@@ -3244,9 +3308,15 @@ def decode_vs_forward(torch, cfg, params, out, max_len) -> dict:
         dec_routes.append(r)
         dropped += d[1]
     diff = torch.stack(diffs, dim=1)                           # (B, S)
+    by_pos = diff.amax(dim=0)
     res = {"max_abs": diff.max().item(),
            "max_abs_logit": logits.float().abs().max().item(),
-           "moe_dropped": dropped}
+           "moe_dropped": dropped,
+           "worst_position": int(by_pos.argmax().item()),
+           "max_abs_at_positions": {
+               p: by_pos[p].item() for p in sorted(
+                   {0, 1, 3, 7, 15, 31, 63, 127, len(by_pos) - 1})
+               if p < len(by_pos)}}
     if fwd_routes:
         # per layer, (B, S): token t of sequence b routed differently
         flips = [(torch.cat([r[layer] for r in dec_routes], dim=1)
@@ -3263,14 +3333,24 @@ def decode_vs_forward(torch, cfg, params, out, max_len) -> dict:
 
 def phase_lm_generate(torch, cfg, params, toks, phase="lm_generate",
                       prompts=8, prompt_len=128, new=32, max_len=256,
-                      check_cfg=None):
+                      check_cfg=None, fp32=None):
     """generate (greedy) for ``prompts`` prompts of ``prompt_len``
     tokens, then the decode steps' logits against forward's on the same
     tokens.  A MoE model's check runs under ``check_cfg``, a capacity
     where nothing drops (which must hold), and sees routing (see
     LM_MOE_DECODE_FP32_RTOL): in bf16 on the first LM_MOE_BF16_PREFIX
     tokens, measured, then in fp32 on all, held (the parameters are cast
-    in place: the phase's last use of them)."""
+    in place: the phase's last use of them).  ``fp32`` (default: for a
+    MoE model) says whether the fp32 check runs; a MoE model without it
+    (its fp32 copy does not fit on the card) holds the bf16 check on all
+    tokens up to each sequence's first flip.  A model without MoE holds
+    bf16 at LM_DECODE_RTOL of the largest logit; with ``fp32`` it also
+    holds fp32 at LM_DECODE_FP32_RTOL, and holds bf16 within the larger
+    of LM_DECODE_RTOL and twice the bf16 forward's distance from the
+    fp32 forward on the same tokens (rwkv6-3b: bf16 rounding alone moves
+    its logits by more than LM_DECODE_RTOL)."""
+    if fp32 is None:
+        fp32 = cfg.moe is not None
     import dataclasses
     from repro_torch.launch.serve import generate
     prompt = toks[:prompts, :prompt_len]
@@ -3288,11 +3368,49 @@ def phase_lm_generate(torch, cfg, params, toks, phase="lm_generate",
     if cfg.moe is None:
         res = decode_vs_forward(torch, cfg, params, out, max_len)
         err, scale = res["max_abs"], res["max_abs_logit"]
+        limit, more = LM_DECODE_RTOL * scale, {}
+        if fp32:
+            from repro_torch.models import forward
+            bf16_logits = forward(cfg, params, {"tokens": out})[0]
+            params_to_fp32_(torch, params)
+            cfg32 = dataclasses.replace(cfg, dtype=torch.float32,
+                                        param_dtype=torch.float32)
+            more = {"fp32": decode_vs_forward(torch, cfg32, params, out,
+                                              max_len),
+                    "fp32_rtol": LM_DECODE_FP32_RTOL}
+            # bf16's own rounding of the forward: decode in bf16 no less
+            # accurate than forward is within twice it of forward
+            gap = (bf16_logits.float() - forward(cfg32, params, {
+                "tokens": out})[0]).abs().max().item()
+            del bf16_logits
+            more["bf16_forward_vs_fp32_max_abs"] = gap
+            limit = max(limit, 2 * gap)
         emit({**row, "decode_vs_forward_max_abs": err, "max_abs_logit": scale,
-              "rtol": LM_DECODE_RTOL})
-        check(math.isfinite(err) and err <= LM_DECODE_RTOL * scale,
+              "rtol": LM_DECODE_RTOL, "bf16": res, "bf16_limit": limit,
+              **more})
+        if fp32:
+            e32, s32 = more["fp32"]["max_abs"], more["fp32"]["max_abs_logit"]
+            check(math.isfinite(e32) and e32 <= LM_DECODE_FP32_RTOL * s32,
+                  f"{phase}: fp32 decode logits differ from forward's by "
+                  f"{e32} (largest logit {s32})")
+        check(math.isfinite(err) and err <= limit,
               f"{phase}: decode logits differ from forward's by {err} "
-              f"(largest logit {scale})")
+              f"(largest logit {scale}, limit {limit})")
+        return
+    if not fp32:
+        bf16 = decode_vs_forward(torch, check_cfg, params, out, max_len)
+        emit({**row, "generate_capacity_factor": cfg.moe.capacity_factor,
+              "generate_moe_dropped_share": gen_drops[1] / gen_drops[0],
+              "check_capacity_factor": check_cfg.moe.capacity_factor,
+              "bf16": bf16, "bf16_rtol": LM_DECODE_RTOL})
+        check(bf16["moe_dropped"] == 0,
+              f"{phase}: {bf16['moe_dropped']} assignments dropped at "
+              f"capacity factor {check_cfg.moe.capacity_factor}")
+        err, scale = bf16["max_abs_before_a_flip"], bf16["max_abs_logit"]
+        check(err is not None and math.isfinite(bf16["max_abs"])
+              and err <= LM_DECODE_RTOL * scale,
+              f"{phase}: bf16 decode logits differ from forward's by {err} "
+              f"before a routing flip (largest logit {scale})")
         return
     bf16 = decode_vs_forward(torch, check_cfg, params,
                              out[:, :LM_MOE_BF16_PREFIX], max_len)
@@ -3334,7 +3452,8 @@ def phase_lm_generate(torch, cfg, params, toks, phase="lm_generate",
 # The REDUCED configs of every ported architecture, in fp32 on CUDA and on
 # the CPU
 LM_PARITY_CONFIGS = ("gemma3-1b", "olmoe-1b-7b", "deepseek-v3-671b",
-                     "tinyllama-1.1b", "qwen3-8b", "phi4-mini-3.8b")
+                     "tinyllama-1.1b", "qwen3-8b", "phi4-mini-3.8b",
+                     "rwkv6-3b", "jamba-1.5-large-398b")
 
 
 def phase_lm_parity(torch):
@@ -3545,6 +3664,128 @@ def phase_lm_dense_configs(torch) -> dict:
         del params, toks
         torch.cuda.empty_cache()
     return total
+
+
+# The recurrent path: rwkv6-3b at full width and depth (32 layers, d 2,560,
+# 40 heads of 64, d_ff 8,960, vocab 65,536, bf16, 3.1 B parameters),
+# random weights from torch.Generator(SEED): embed_corpus on LM_RWKV_DOCS
+# sequences of LM_SEQ tokens in blocks of LM_BLOCK, Stars and affinity on
+# the embeddings, a block profiled at LM_RWKV_PROFILE_SEQ tokens a
+# sequence (the profiler takes ~1.1 ms of host time a kernel launch to
+# collect and reduce its trace, and the loop launches ~5 kernels a step a
+# layer: 49 s at 256 tokens on an H100 host; the loop's device time a
+# step, 0.152-0.153 ms, does not depend on the length), then generate and
+# decode against forward (in bf16, then in fp32).  No kernel of the
+# port's own runs: the recurrence is a loop of PyTorch ops.  128
+# sequences keep the phase near a minute and a half (26.5 s of embed).
+LM_RWKV_DOCS, LM_RWKV_PROFILE_SEQ = 128, 128
+
+
+def phase_lm_rwkv(torch) -> dict:
+    from repro_torch.configs import rwkv6_3b
+    cfg = rwkv6_3b.CONFIG
+    params = lm_init(torch, cfg)
+    launches, toks = phase_lm_embed(torch, cfg, params, phase="lm_rwkv",
+                                    docs=LM_RWKV_DOCS, seed=SEED + 13,
+                                    profile_seq=LM_RWKV_PROFILE_SEQ)
+    phase_lm_generate(torch, cfg, params, toks, phase="lm_rwkv", fp32=True)
+    del params, toks
+    torch.cuda.empty_cache()
+    return launches
+
+
+# The hybrid path: jamba-1.5-large-398b at full width (d 8,192, 64 / 8
+# heads of 128, d_ff 24,576, Mamba d_inner 16,384, d_state 16, d_conv 4,
+# dt_rank 512, 16 experts of d_ff 24,576 top-2, vocab 65,536, bf16) with
+# its depth cut from 72 layers to 4 and its period from 8 to 4
+# (attn_offset 2): [mamba_dense, mamba_moe, dense (attention), mamba_moe],
+# exactly layers 2-5 of jamba's period of 8.  One mamba_moe layer holds
+# 19.3 GB of experts, so a whole period (four of them, ~85 GB) does not
+# fit on the card; carrying the published period would need each MoE
+# layer's experts split over cards, which the JAX package lacks.  Forward
+# on LM_JAMBA_BATCH x LM_SEQ tokens (twice: the first includes cuBLAS's
+# set-up), profiled at LM_JAMBA_PROFILE_SEQ tokens a sequence (at 2,048,
+# 49,600 launches took the profiler 48 s), an embed of LM_JAMBA_DOCS
+# sequences in blocks of LM_JAMBA_BATCH, generate, and decode against
+# forward at capacity factor 8 (= 16 / 2: nothing drops) in bf16 only:
+# the fp32 copy of the cut's 23 B parameters (92 GB) does not fit either.
+LM_JAMBA_LAYERS, LM_JAMBA_BATCH, LM_JAMBA_DOCS = 4, 2, 8
+LM_JAMBA_PROFILE_SEQ = 512
+
+
+def phase_lm_jamba(torch) -> dict:
+    import dataclasses
+    from repro_torch.configs import jamba_1_5_large_398b
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import forward
+    from repro_torch.models.stack import layer_defs, layer_plan
+    full = jamba_1_5_large_398b.CONFIG
+    cfg = dataclasses.replace(full, n_layers=LM_JAMBA_LAYERS, attn_period=4,
+                              attn_offset=2)
+    plan = [bd.flavor for bd in layer_defs(layer_plan(cfg))]
+    check(plan == ["mamba_dense", "mamba_moe", "dense", "mamba_moe"],
+          f"lm_jamba: the cut's layers are {plan}")
+    emit({"phase": "lm_jamba", "model": full.name,
+          "cut": f"depth {full.n_layers} -> {cfg.n_layers} layers, "
+                 f"attention period {full.attn_period} -> {cfg.attn_period} "
+                 f"(ratio 1:3 instead of 1:7): {plan}, layers 2-5 of the "
+                 "published period; all widths, all "
+                 f"{cfg.moe.num_experts} experts and top-{cfg.moe.top_k} "
+                 "as published.  One mamba_moe layer holds 19.3 GB of "
+                 "experts: a whole period of 8 (~85 GB) does not fit on "
+                 "one card"})
+    params = lm_init(torch, cfg)
+    toks, _ = lm_corpus(torch, LM_JAMBA_BATCH, LM_SEQ, LM_CLASSES,
+                        cfg.vocab, SEED + 14)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    fwd_s = []
+    for _ in range(2):           # the first call includes cuBLAS's set-up
+        t = time.perf_counter()
+        (logits, aux), _, drops = routed(
+            torch, lambda: forward(cfg, params, {"tokens": toks}),
+            keep=False)
+        torch.cuda.synchronize()
+        fwd_s.append(time.perf_counter() - t)
+    launches = read_launches()
+    designs = dict(fa.design_launches)
+    launches["flash_attention_by_design"] = designs
+    check(launches["flash_attention"] == 2
+          and designs == {"wgmma": 2, "mma": 0, "fma": 0},
+          f"lm_jamba: flash_attention launches by design {designs}: one a "
+          "forward, on the tensor-core design")
+    check(logits.shape == (LM_JAMBA_BATCH, LM_SEQ, cfg.vocab)
+          and bool(torch.isfinite(logits).all()),
+          f"lm_jamba: logits {tuple(logits.shape)} or not finite")
+    check(math.isfinite(aux.item()) and aux.item() > 0,
+          f"lm_jamba: moe_aux {aux.item()}")
+    assigned, dropped = drops
+    emit({"phase": "lm_jamba", "model": cfg.name, "layers": plan,
+          "batch": LM_JAMBA_BATCH, "seq": LM_SEQ, "forward_seconds": fwd_s,
+          "tokens_per_s": LM_JAMBA_BATCH * LM_SEQ / fwd_s[1],
+          "moe_aux": aux.item(), "capacity_factor": cfg.moe.capacity_factor,
+          "moe_assignments": assigned, "moe_dropped_share": dropped / assigned,
+          "flash_attention_launches_by_design": designs,
+          "peak_device_bytes_forward": torch.cuda.max_memory_allocated()})
+    del logits
+    lm_profile(torch, cfg, f"lm_jamba (forward, {LM_JAMBA_BATCH} x "
+               f"{LM_JAMBA_PROFILE_SEQ} tokens)",
+               lambda: forward(cfg, params,
+                               {"tokens": toks[:, :LM_JAMBA_PROFILE_SEQ]}),
+               LM_JAMBA_PROFILE_SEQ)
+    more, docs = phase_lm_embed(torch, cfg, params, phase="lm_jamba",
+                                docs=LM_JAMBA_DOCS, seed=SEED + 15,
+                                cluster=False, block=LM_JAMBA_BATCH)
+    add_launches(launches, more)
+    mo = cfg.moe
+    nodrop = dataclasses.replace(cfg, moe=dataclasses.replace(
+        mo, capacity_factor=mo.num_experts / mo.top_k))
+    phase_lm_generate(torch, cfg, params, docs, phase="lm_jamba",
+                      check_cfg=nodrop, fp32=False)
+    del params, toks, docs
+    torch.cuda.empty_cache()
+    return launches
 
 
 # The training path (launch/train.py::train_loop) at gemma3-1b's full
@@ -4771,6 +5012,8 @@ def main() -> int:
     by_path["lm_moe"] = phase_lm_moe(torch)
     by_path["lm_mla"] = phase_lm_mla(torch)
     by_path["lm_dense_configs"] = phase_lm_dense_configs(torch)
+    by_path["lm_rwkv"] = phase_lm_rwkv(torch)
+    by_path["lm_jamba"] = phase_lm_jamba(torch)
     by_path.update(phase_train(torch))
     by_path.update(phase_parity(torch, parity_inputs_, worker, started))
     for k in kernels:

@@ -28,7 +28,8 @@ ARCH_NAMES = [
 ]
 
 PORTED = ("phi4-mini-3.8b", "qwen3-8b", "tinyllama-1.1b", "gemma3-1b",
-          "olmoe-1b-7b", "deepseek-v3-671b")
+          "olmoe-1b-7b", "deepseek-v3-671b", "rwkv6-3b",
+          "jamba-1.5-large-398b")
 
 SHAPES = {
     # name: (seq_len, global_batch, step kind)

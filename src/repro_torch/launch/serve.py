@@ -2,7 +2,9 @@
 (``repro.launch.serve``).
 
 ``generate`` runs the serve path: a prefill through decode steps fills
-the KV caches, then single-token decode steps sample.  ``embed_corpus``
+the decode caches (KV caches, MLA latents, Mamba and RWKV states), then
+single-token decode steps sample; ``decode_step`` updates the cache in
+place for every flavour, which both rely on.  ``embed_corpus``
 is the graph-building entry point: it mean-pools the final hidden states
 into per-document embeddings, the learned-similarity producer that feeds
 Stars (``GraphBuilder(PointFeatures(emb), StarsConfig())``).  Both run

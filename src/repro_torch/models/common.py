@@ -46,8 +46,8 @@ class MambaConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """One architecture; the fields and defaults of the JAX package's
-    ``ModelConfig``, with torch dtypes.  The dense, MoE and MLA flavours
-    run in the port (``models/stack.py``); the Mamba, RWKV and
+    ``ModelConfig``, with torch dtypes.  The dense, MoE, MLA, Mamba and
+    RWKV flavours run in the port (``models/stack.py``); the encoder and
     cross-attention fields are data so far."""
 
     name: str
@@ -138,11 +138,24 @@ class ParamInit:
         scale = scale if scale is not None else (1.0 / shape[0]) ** 0.5
         w = torch.randn(tuple(shape), generator=self.gen, device=self.device,
                         dtype=torch.float32)
-        self.values[name] = (w * scale).to(self.dtype)
+        # scaled in place: one fp32 copy of the draw, not two (a full-width
+        # expert stack is 12.9 GB in fp32)
+        self.values[name] = w.mul_(scale).to(self.dtype)
 
     def zeros(self, name: str, shape: Sequence[int]) -> None:
         self.values[name] = torch.zeros(tuple(shape), dtype=self.dtype,
                                         device=self.device)
+
+    def ones(self, name: str, shape: Sequence[int]) -> None:
+        self.values[name] = torch.ones(tuple(shape), dtype=self.dtype,
+                                       device=self.device)
+
+    def const(self, name: str, value) -> None:
+        """``value`` (fp32, as the JAX package computes it) cast once to
+        the parameter dtype, as ``jnp.asarray(value, dtype)`` does: in
+        bf16 that rounds, e.g. Mamba's ``a_log = log(1..16)``."""
+        v = torch.as_tensor(value, dtype=torch.float32)
+        self.values[name] = v.to(device=self.device, dtype=self.dtype)
 
 
 # --------------------------------------------------------------------------- #

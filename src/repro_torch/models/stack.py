@@ -8,6 +8,8 @@ groups ``(repeat_outer, [(repeat_inner, BlockDef), ...])``, e.g.
   gemma3-1b   [(4, [(5, local), (1, global)]), (1, [(2, local)])]
   olmoe-1b-7b [(1, [(16, moe)])]
   deepseek-v3 [(1, [(3, mla_dense)]), (1, [(58, mla_moe)])]
+  rwkv6-3b    [(1, [(32, rwkv)])]
+  jamba       [(9, [(1, mamba_dense), (1, mamba_moe), ... (8 sub-blocks)])]
 
 The JAX package stacks each run of identical blocks under
 ``g{gi}/s{si}`` with leading (outer, inner) axes and runs them with
@@ -24,17 +26,27 @@ rest in the backward; with grad mode off (serving) nothing changes.
 
 Block flavours: ``dense`` and ``moe`` (GQA attention with a SwiGLU or
 MoE FFN), ``mla_dense`` and ``mla_moe`` (DeepSeek MLA with either FFN;
-the dense-prefix layers take ``BlockDef.d_ff``).  Each block returns the
-MoE load-balance loss beside its output (0 for a dense FFN), and
-``_run_stack`` sums it over the layers in fp32.
+the dense-prefix layers take ``BlockDef.d_ff``), ``mamba_dense`` and
+``mamba_moe`` (Jamba's Mamba mixer with either FFN, ``models/mamba.py``)
+and ``rwkv`` (RWKV-6 time mix and channel mix, ``models/rwkv.py``; no
+attention and no FFN).  Each block returns the MoE load-balance loss
+beside its output (0 for a dense FFN), and ``_run_stack`` sums it over
+the layers in fp32.
+
+Decode caches, one dict a layer: ``k`` / ``v`` (GQA), ``ckv`` /
+``krope`` (MLA), ``conv`` / ``ssm`` (Mamba), ``state`` / ``tprev`` /
+``cprev`` (RWKV).  Every flavour's decode updates its layer's dict in
+place (new entries for the recurrent states, writes into the KV tensors
+for attention) and ``decode_step`` stores the dict that each block
+returns back into the cache list, so the caller's cache is the updated
+one; ``launch/serve.py`` relies on it.
 
 Not ported, with the reason:
   * ``constrain`` (``distributed/activation_sharding.py``) pins
     activation shardings on a mesh; on one device it is the identity.
-  * The flavours ``rwkv`` (RWKV-6), ``mamba_dense`` / ``mamba_moe``
-    (Jamba), ``cross_dense`` / ``self_cross_dense`` (cross attention) and
-    the encoder stack (``encoder_plan``, ``encode``) raise
-    ``NotImplementedError`` until their slice.
+  * The flavours ``cross_dense`` / ``self_cross_dense`` (cross
+    attention) and the encoder stack (``encoder_plan``, ``encode``)
+    raise ``NotImplementedError`` until their slice.
 """
 
 from __future__ import annotations
@@ -47,8 +59,10 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import mamba as mamba_lib
 from repro_torch.models import mla as mla_lib
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import rwkv as rwkv_lib
 from repro_torch.models.common import (ModelConfig, ParamInit,
                                        apply_dense_ffn, init_dense_ffn,
                                        rms_norm)
@@ -138,7 +152,8 @@ def layer_stacks(cfg: ModelConfig) -> List[Tuple[int, int]]:
             for _ in range(ri)]
 
 
-PORTED_FLAVOURS = ("dense", "moe", "mla_dense", "mla_moe")
+PORTED_FLAVOURS = ("dense", "moe", "mla_dense", "mla_moe", "mamba_dense",
+                   "mamba_moe", "rwkv")
 
 
 def _check_ported(cfg: ModelConfig) -> None:
@@ -162,8 +177,14 @@ def _init_block(bd: BlockDef, cfg: ModelConfig, gen: torch.Generator,
     init = ParamInit(gen, cfg.param_dtype, device)
     init.zeros("norm1", (cfg.d_model,))
     init.zeros("norm2", (cfg.d_model,))
+    if bd.flavor == "rwkv":
+        rwkv_lib.init_rwkv_time(init, cfg, prefix="tmix")
+        rwkv_lib.init_rwkv_channel(init, cfg, prefix="cmix")
+        return init.values
     if bd.flavor.startswith("mla"):
         mla_lib.init_mla(init, cfg, prefix="mla")
+    elif bd.flavor.startswith("mamba"):
+        mamba_lib.init_mamba(init, cfg, prefix="mamba")
     else:
         attn_lib.init_attn(init, cfg, prefix="attn")
     if bd.flavor.endswith("moe"):
@@ -186,10 +207,18 @@ def _apply_block(bd: BlockDef, cfg: ModelConfig, p: Dict[str, torch.Tensor],
                  x: torch.Tensor, ctx: Dict[str, Any]
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward of one block: (x, moe_aux)."""
+    if bd.flavor == "rwkv":
+        x = x + rwkv_lib.rwkv_time_fwd(p, cfg, rms_norm(x, p["norm1"],
+                                                        cfg.norm_eps))
+        x = x + rwkv_lib.rwkv_channel_fwd(p, cfg, rms_norm(x, p["norm2"],
+                                                           cfg.norm_eps))
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if bd.flavor.startswith("mla"):
         x = x + mla_lib.mla_fwd(p, cfg, h, positions=ctx["positions"],
                                 prefix="mla")
+    elif bd.flavor.startswith("mamba"):
+        x = x + mamba_lib.mamba_fwd(p, cfg, h, prefix="mamba")
     else:
         x = x + attn_lib.attn_fwd(p, cfg, h, positions=ctx["positions"],
                                   causal=True, window=bd.window,
@@ -201,6 +230,10 @@ def _apply_block(bd: BlockDef, cfg: ModelConfig, p: Dict[str, torch.Tensor],
 def _init_block_cache(bd: BlockDef, cfg: ModelConfig, batch: int,
                       max_len: int, device: torch.device
                       ) -> Dict[str, torch.Tensor]:
+    if bd.flavor == "rwkv":
+        return rwkv_lib.init_rwkv_cache(cfg, batch, device=device)
+    if bd.flavor.startswith("mamba"):
+        return mamba_lib.init_mamba_cache(cfg, batch, device=device)
     if bd.flavor.startswith("mla"):
         return mla_lib.init_mla_cache(cfg, batch, max_len, device=device)
     return attn_lib.init_kv_cache(cfg, batch, max_len, window=bd.window,
@@ -211,10 +244,20 @@ def _decode_block(bd: BlockDef, cfg: ModelConfig, p: Dict[str, torch.Tensor],
                   x: torch.Tensor, cache: Dict[str, torch.Tensor], pos: int
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One-token decode of one block; a MoE FFN runs on the B tokens of
-    the step, so its capacity is the step's, as in the JAX package."""
+    the step, so its capacity is the step's, as in the JAX package.
+    Updates ``cache`` in place and returns (x, cache)."""
+    if bd.flavor == "rwkv":
+        out, cache = rwkv_lib.rwkv_time_decode(
+            p, cfg, rms_norm(x, p["norm1"], cfg.norm_eps), cache)
+        x = x + out
+        out, cache = rwkv_lib.rwkv_channel_decode(
+            p, cfg, rms_norm(x, p["norm2"], cfg.norm_eps), cache)
+        return x + out, cache
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if bd.flavor.startswith("mla"):
         out, cache = mla_lib.mla_decode(p, cfg, h, cache, pos, prefix="mla")
+    elif bd.flavor.startswith("mamba"):
+        out, cache = mamba_lib.mamba_decode(p, cfg, h, cache)
     else:
         out, cache = attn_lib.attn_decode(p, cfg, h, cache, pos,
                                           window=bd.window,
@@ -289,7 +332,8 @@ def forward(cfg: ModelConfig, params: Dict[str, Any],
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device: DeviceLike = None) -> List[Dict[str, torch.Tensor]]:
     """Decode cache, one dict per layer in layer order: {"k", "v"} for
-    GQA attention, {"ckv", "krope"} (the latent) for MLA."""
+    GQA attention, {"ckv", "krope"} (the latent) for MLA, {"conv",
+    "ssm"} for Mamba, {"state", "tprev", "cprev"} for RWKV."""
     _check_ported(cfg)
     dev = resolve_device(device)
     return [_init_block_cache(bd, cfg, batch, max_len, dev)
@@ -301,10 +345,11 @@ def decode_step(cfg: ModelConfig, params: Dict[str, Any],
                 pos: int) -> Tuple[torch.Tensor, List[Dict[str, torch.Tensor]]]:
     """One-token serve step. token: (B, 1) int; pos: its position.
 
-    Returns (logits (B, vocab), cache); the cache is updated in place."""
+    Returns (logits (B, vocab), cache); the cache list is updated in
+    place: each layer's dict by its block, and stored back at its index."""
     x = params["embed"][token].to(cfg.dtype)             # (B, 1, d)
-    for bd, p, c in zip(layer_defs(layer_plan(cfg)), params["layers"], cache,
-                        strict=True):
-        x, _ = _decode_block(bd, cfg, p, x, c, pos)
+    for i, (bd, p, c) in enumerate(zip(layer_defs(layer_plan(cfg)),
+                                       params["layers"], cache, strict=True)):
+        x, cache[i] = _decode_block(bd, cfg, p, x, c, pos)
     x = rms_norm(x, params["norm_f"], cfg.norm_eps)
     return (x @ _unembed(cfg, params))[:, 0], cache

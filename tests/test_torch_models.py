@@ -106,7 +106,8 @@ def test_ported_configs_equal_jax(name):
 def test_ported_architectures():
     assert set(t_configs.PORTED) == {
         "gemma3-1b", "tinyllama-1.1b", "qwen3-8b", "phi4-mini-3.8b",
-        "olmoe-1b-7b", "deepseek-v3-671b"}
+        "olmoe-1b-7b", "deepseek-v3-671b", "rwkv6-3b",
+        "jamba-1.5-large-398b"}
 
 
 @pytest.mark.parametrize("name", [n for n in j_configs.ARCH_NAMES
@@ -128,8 +129,8 @@ def test_layer_plan_equals_jax(name):
 
 
 def test_unported_flavour_raises():
-    cfg = _to_torch_cfg(j_configs.get_reduced("rwkv6-3b"))
-    with pytest.raises(NotImplementedError, match="rwkv"):
+    cfg = _to_torch_cfg(j_configs.get_reduced("llama-3.2-vision-90b"))
+    with pytest.raises(NotImplementedError, match="cross_dense"):
         init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
 
 
@@ -142,7 +143,10 @@ def test_unported_flavour_raises():
 # (outer, inner) index, a leaf): gemma3 REDUCED is [(2, [(2, local),
 # (1, global)])], so layer 4 is outer repeat 1, sub-block 0, inner repeat
 # 1; olmoe's second layer is g0/s0[0, 1]; deepseek's layers are one
-# mla_dense prefix (g0) and two mla_moe (g1), its third g1/s0[0, 1]
+# mla_dense prefix (g0) and two mla_moe (g1), its third g1/s0[0, 1];
+# rwkv6's two layers are g0/s0[0, 0] and [0, 1]; jamba's REDUCED plan is
+# [(1, [8 sub-blocks of 1])], layer i under g0/s{i}[0, 0]: 0 mamba_dense,
+# 4 dense (attention), 5 mamba_moe
 ROUND_TRIPS = [
     pytest.param("gemma3-1b", "float32", 4, ("g0", "s0", 1, 1), "attn_wq",
                  id="float32"),
@@ -152,6 +156,12 @@ ROUND_TRIPS = [
                  id="olmoe-1b-7b-bfloat16"),
     pytest.param("deepseek-v3-671b", "bfloat16", 2, ("g1", "s0", 0, 1),
                  "mla_wk_b", id="deepseek-v3-671b-bfloat16"),
+    pytest.param("rwkv6-3b", "bfloat16", 1, ("g0", "s0", 0, 1),
+                 "tmix_w_lora_a", id="rwkv-bfloat16"),
+    pytest.param("jamba-1.5-large-398b", "float32", 0, ("g0", "s0", 0, 0),
+                 "mamba_a_log", id="mamba_dense-float32"),
+    pytest.param("jamba-1.5-large-398b", "bfloat16", 5, ("g0", "s5", 0, 0),
+                 "mamba_dt_w", id="mamba_moe-bfloat16"),
 ]
 
 
